@@ -3,10 +3,8 @@
 // Replaces the TPU lookup of arcnerf_tpu/models/base_modules/encoding.py
 // (_hash_lookup_fused and its paired/row-form siblings) and computes the
 // numbers of HashGridEmbedder's CPU element path (_gather_cols_f32): per
-// (point, level) the level resolution, the corner entries of the dense or
-// hashed level (quad, pair or instant-ngp hash, uint32 wrapping multiplies,
-// & (T-1)), the 8 trilinear weights in _CORNER_OFFSETS order, and each
-// table entry read rounded to bf16, summed in f32.
+// (point, level) the corner entries and trilinear weights of hash_grid.cuh,
+// and each table entry read rounded to bf16, summed in f32.
 //
 // What bounds it on the H100: random 8-byte reads from a 64 MB table
 // (16 levels x 2^19 entries x F=2 f32) - 8 corners x 16 levels per point,
@@ -18,14 +16,9 @@
 // L2. Coalescing the hashed corners (the TPU's quad/pair row trick) is
 // later work.
 
-#include "common.cuh"
+#include "hash_grid.cuh"
 
 namespace {
-
-constexpr uint32_t kPrime1 = 2654435761u;
-constexpr uint32_t kPrime2 = 805459861u;
-constexpr uint32_t kQuadSY = 31u;
-enum Variant { kNgp = 0, kPair = 1, kQuad = 2 };
 
 template <int F>
 __global__ void __launch_bounds__(256) hash_encode_fwd_kernel(
@@ -36,57 +29,23 @@ __global__ void __launch_bounds__(256) hash_encode_fwd_kernel(
     if (idx >= n_pts * n_levels) return;
     const int64_t b = idx / n_levels;
     const int l = static_cast<int>(idx - b * n_levels);
-    const int r = res[l];
-    const float rf = static_cast<float>(r);
 
-    // same rounding steps as the reference: normalise, scale, floor, clip;
-    // the _rn intrinsics keep nvcc from contracting them into FMAs
-    const float px = __fmul_rn(__fdiv_rn(__fsub_rn(xyz[3 * b + 0], mn0), len0), rf);
-    const float py = __fmul_rn(__fdiv_rn(__fsub_rn(xyz[3 * b + 1], mn1), len1), rf);
-    const float pz = __fmul_rn(__fdiv_rn(__fsub_rn(xyz[3 * b + 2], mn2), len2), rf);
-    const int x0 = min(max(static_cast<int>(floorf(px)), 0), r - 1);
-    const int y0 = min(max(static_cast<int>(floorf(py)), 0), r - 1);
-    const int z0 = min(max(static_cast<int>(floorf(pz)), 0), r - 1);
-    const float fx = __fsub_rn(px, static_cast<float>(x0));
-    const float fy = __fsub_rn(py, static_cast<float>(y0));
-    const float fz = __fsub_rn(pz, static_cast<float>(z0));
-    const float wx[2] = {__fsub_rn(1.f, fx), fx};
-    const float wy[2] = {__fsub_rn(1.f, fy), fy};
-    const float wz[2] = {__fsub_rn(1.f, fz), fz};
-
-    const uint32_t mask = table_size - 1u;
-    const int64_t n1 = r + 1;
-    const bool dense = n1 * n1 * n1 <= static_cast<int64_t>(table_size);
-    const uint32_t ux = static_cast<uint32_t>(x0), uy = static_cast<uint32_t>(y0), uz = static_cast<uint32_t>(z0);
+    uint32_t entry[8];
+    float w[8];
+    hash_grid::corners(xyz[3 * b + 0], xyz[3 * b + 1], xyz[3 * b + 2], res[l], mn0, mn1, mn2, len0, len1, len2,
+                       table_size, variant, entry, w);
     const float* tab = table + static_cast<int64_t>(l) * table_size * F;
 
     float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.f;
-
-    // corners in _CORNER_OFFSETS order: z outer, then x, then y
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-        const uint32_t cz = c >> 2, cx = (c >> 1) & 1u, cy = c & 1u;
-        uint32_t e;
-        if (dense) {
-            const uint32_t nn = static_cast<uint32_t>(n1);
-            e = (ux + cx) * (nn * nn) + (uy + cy) * nn + uz + cz;
-        } else if (variant == kQuad) {
-            const uint32_t qb = ((ux + cx) * kPrime1 + uy * kQuadSY + uz) & mask;
-            e = (qb + cy * kQuadSY + cz) & mask;
-        } else if (variant == kPair) {
-            const uint32_t base = (((ux + cx) ^ ((uy + cy) * kPrime1)) + uz) & mask;
-            e = (base + cz) & mask;
-        } else {
-            e = ((ux + cx) ^ ((uy + cy) * kPrime1) ^ ((uz + cz) * kPrime2)) & mask;
-        }
-        const float w = __fmul_rn(__fmul_rn(wx[cx], wy[cy]), wz[cz]);
-        const float* entry = tab + static_cast<int64_t>(e) * F;
+        const float* e = tab + static_cast<int64_t>(entry[c]) * F;
 #pragma unroll
         for (int f = 0; f < F; ++f) {
-            const float v = read_bf16 ? round_bf16(entry[f]) : entry[f];
-            acc[f] = __fadd_rn(acc[f], __fmul_rn(v, w));
+            const float v = read_bf16 ? round_bf16(e[f]) : e[f];
+            acc[f] = __fadd_rn(acc[f], __fmul_rn(v, w[c]));
         }
     }
     float* o = out + b * (static_cast<int64_t>(n_levels) * F) + l * F;

@@ -32,7 +32,7 @@ class Base3dDataset:
         self.skip = get_value_from_cfgs_field(cfgs, "skip", 1)
         self.eval_max_sample = get_value_from_cfgs_field(cfgs, "eval_max_sample")
         if get_value_from_cfgs_field(cfgs, "ndc_space", False):
-            raise NotImplementedError("NDC rays (LLFF) are not ported yet (ROADMAP Queue 1, item 9)")
+            raise NotImplementedError("NDC rays (LLFF) are not ported yet (ROADMAP Queue 1, item 4)")
         self.center_pixel = get_value_from_cfgs_field(cfgs, "center_pixel", False)
         self.normalize_rays_d = get_value_from_cfgs_field(cfgs, "normalize_rays_d", True)
 

@@ -1,16 +1,23 @@
 """Dense voxel volume: static geometry plus occupancy lookups.
 
 Counterpart of the ``Volume`` class of ``arcnerf_tpu/geometry/volume.py``,
-reduced to what serving needs: range, voxel size and diagonal, the
-bitfield/opacity-field constructors, the per-axis flat voxel index, the
-flat-take occupancy test and the ray/volume intersection. ``Volume`` holds
-only static geometry; the bitfield is passed in and out explicitly.
+reduced to what the NGP recipe's serving and training need: range, voxel
+size and diagonal, the bitfield/opacity-field constructors and updates,
+the flat <-> xyz voxel index, voxel centres, the per-axis flat voxel index,
+the flat-take occupancy test and the ray/volume intersection. ``Volume``
+holds only static geometry; the bitfield and the opacity field are passed
+in and out explicitly.
 """
 
 import numpy as np
 import torch
 
 from .ray import aabb_ray_intersection
+
+
+def convert_flatten_index_to_xyz_index(flat, n):
+    """(B,) flat voxel index -> (B, 3) xyz index (flat = x*n^2 + y*n + z)."""
+    return torch.stack([flat // (n * n), (flat // n) % n, flat % n], dim=-1)
 
 
 class Volume:
@@ -51,9 +58,18 @@ class Volume:
     def get_diag_len(self):
         return float(np.linalg.norm(self.xyz_len))
 
-    def get_voxel_size(self):
+    def get_voxel_size(self, to_list=True, device=None):
+        """Voxel side lengths: three floats, or an f32 (3,) tensor."""
         xyz_s = self.xyz_len / self.n_grid
-        return float(xyz_s[0]), float(xyz_s[1]), float(xyz_s[2])
+        if to_list:
+            return float(xyz_s[0]), float(xyz_s[1]), float(xyz_s[2])
+        return torch.as_tensor(xyz_s, dtype=torch.float32, device=device)
+
+    def get_voxel_pts_by_voxel_idx(self, voxel_idx):
+        """(B, 3) xyz voxel index -> (B, 3) voxel centres."""
+        vs = self.get_voxel_size(to_list=False, device=voxel_idx.device)
+        start = self.get_range(voxel_idx.device)[:, 0]
+        return voxel_idx.to(torch.float32) * vs + 0.5 * vs + start
 
     # ---------------------------------------------------------------- state
     def create_bitfield(self, init_occ=True, device=None):
@@ -64,6 +80,27 @@ class Volume:
     def create_opafield(self, init=0.0, device=None):
         """-> (n_grid, n_grid, n_grid) f32 opacity field."""
         return torch.full((self.n_grid,) * 3, init, dtype=torch.float32, device=device)
+
+    @staticmethod
+    def update_bitfield(bitfield, occupancy, ops="and"):
+        """Combine new occupancy into the bitfield; returns the new bitfield."""
+        occupancy = occupancy.reshape(bitfield.shape)
+        if ops == "and":
+            return bitfield & occupancy
+        if ops == "or":
+            return bitfield | occupancy
+        if ops == "overwrite":
+            return occupancy
+        raise NotImplementedError("ops {} not supported".format(ops))
+
+    @staticmethod
+    def get_mean_voxel_opacity(opafield):
+        return opafield.clamp_min(0.0).mean()
+
+    def update_bitfield_by_opafield(self, bitfield, opafield, threshold=0.01, ops="and"):
+        """Occupancy = opacity >= min(mean opacity, threshold)."""
+        thres = torch.clamp_max(self.get_mean_voxel_opacity(opafield), threshold)
+        return self.update_bitfield(bitfield, opafield >= thres, ops)
 
     # -------------------------------------------------------------- indexing
     def get_flat_voxel_idx_from_coords(self, x, y, z):

@@ -10,7 +10,7 @@ def build_model(cfgs, logger=None, generator=None):
     from .full_model import FullModel
 
     if valid_key_in_cfgs(cfgs.model, "background") and valid_key_in_cfgs(cfgs.model.background, "type"):
-        raise NotImplementedError("background models are not ported yet (ROADMAP Queue 1, item 9)")
+        raise NotImplementedError("background models are not ported yet (ROADMAP Queue 1, item 4)")
     fg_model = MODEL_REGISTRY.get(cfgs.model.type)(cfgs, generator=generator)
     if logger is not None:
         logger.add_log("Built model {} (bkg: None)".format(cfgs.model.type))

@@ -30,7 +30,7 @@ def _build(registry, cfgs, default_type, generator):
 def build_encoder(cfgs, generator=None):
     """Encoder factory (SHEmbedder, HashGridEmbedder so far)."""
     if cfgs is None:
-        raise NotImplementedError("the default FreqEmbedder is not ported yet (ROADMAP Queue 1, item 9)")
+        raise NotImplementedError("the default FreqEmbedder is not ported yet (ROADMAP Queue 1, item 4)")
     return _build(ENCODER_REGISTRY, cfgs, "FreqEmbedder", generator)
 
 

@@ -1,12 +1,15 @@
 """Input encoders: spherical harmonics and the multi-resolution hash grid
-with kernel B.
+with kernels B and E.
 
 Counterpart of ``arcnerf_tpu/models/base_modules/encoding.py`` (sh_basis,
 SHEmbedder, hash_variant_from_cfgs, HashGridEmbedder). ``hash_encode``
 replaces the TPU lookup (``_hash_lookup_fused`` and its siblings) with the
-CUDA kernel in ``csrc/hash_encode.cu``; ``hash_encode_reference`` is the plain version of
-the JAX CPU element path (``_gather_cols_f32``): the same entry math and
-corner order, each table entry read rounded to bf16, sums in f32.
+CUDA kernel in ``csrc/hash_encode.cu`` (kernel B) and its table gradient
+with the scatter in ``csrc/hash_encode_bwd.cu`` (kernel E);
+``hash_encode_reference`` and ``hash_encode_bwd_reference`` are the plain
+versions of the JAX CPU element path (``_gather_cols_f32`` and its VJP):
+the same entry math and corner order, each table entry read rounded to
+bf16, sums and the table gradient in f32.
 
 All encoders expose ``out_dim`` and ``forward(x) -> (B, out_dim)``.
 """
@@ -139,12 +142,10 @@ def _corner_entries(i0, res, table_size, variant):
     return entries
 
 
-def hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True):
-    """Plain version: xyz (B, 3) -> (B, L * F), the JAX CPU element path.
-
-    table (L, T, F) f32; res (L,) level resolutions; aabb_min/aabb_len (3,)
-    f32 volume corner and side lengths; variant 'quad' | 'pair' | 'ngp'."""
-    n_levels, table_size, n_feat = table.shape
+def _corners_and_weights(xyz, res, aabb_min, aabb_len, table_size, variant):
+    """xyz (B, 3) -> per corner (in _CORNER_OFFSETS order) the (B, L) int64
+    entries and (B, L) f32 trilinear weights, the JAX CPU element path's
+    math."""
     dev = xyz.device
     res_i = torch.as_tensor(np.asarray(res), dtype=torch.int64, device=dev)
     mn = torch.as_tensor(np.asarray(aabb_min, np.float32), device=dev)
@@ -154,33 +155,56 @@ def hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf1
     i0 = torch.minimum(torch.floor(p).to(torch.int64).clamp_min(0), (res_i - 1)[None, :, None])
     f = p - i0.to(torch.float32)
     wts = (1.0 - f, f)
+    entries = _corner_entries(i0, res_i, table_size, variant)
+    weights = [wts[cx][..., 0] * wts[cy][..., 1] * wts[cz][..., 2] for cx, cy, cz in _CORNER_OFFSETS]
+    return entries, weights
 
+
+def hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True):
+    """Plain version: xyz (B, 3) -> (B, L * F), the JAX CPU element path.
+
+    table (L, T, F) f32; res (L,) level resolutions; aabb_min/aabb_len (3,)
+    f32 volume corner and side lengths; variant 'quad' | 'pair' | 'ngp'."""
+    n_levels, table_size, n_feat = table.shape
+    entries, weights = _corners_and_weights(xyz, res, aabb_min, aabb_len, table_size, variant)
     tab = table.reshape(n_levels * table_size, n_feat)
     if read_bf16:
         tab = tab.to(torch.bfloat16).float()
-    level_off = (torch.arange(n_levels, device=dev, dtype=torch.int64) * table_size)[None, :]
-    acc = torch.zeros(xyz.shape[0], n_levels, n_feat, dtype=torch.float32, device=dev)
-    for (cx, cy, cz), e in zip(_CORNER_OFFSETS, _corner_entries(i0, res_i, table_size, variant)):
-        w = wts[cx][..., 0] * wts[cy][..., 1] * wts[cz][..., 2]  # (B, L)
+    level_off = (torch.arange(n_levels, device=xyz.device, dtype=torch.int64) * table_size)[None, :]
+    acc = torch.zeros(xyz.shape[0], n_levels, n_feat, dtype=torch.float32, device=xyz.device)
+    for e, w in zip(entries, weights):
         acc = acc + tab[e + level_off] * w[..., None]
     return acc.reshape(xyz.shape[0], n_levels * n_feat)
 
 
-def hash_encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
-    """Hash-grid encoding. A CPU tensor takes ``hash_encode_reference``; a
-    CUDA tensor launches kernel B or raises. ``res_dev`` optionally gives
-    ``res`` as an int32 tensor already on the device."""
-    if xyz.device.type == "cpu":
-        return hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16)
-    cuda_lib.require_cuda("hash_encode", xyz, table)
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise RuntimeError("hash_encode: the CUDA backward (table scatter) is not ported yet (inference only)")
-    n_levels, table_size, n_feat = table.shape
+def hash_encode_bwd_reference(xyz, g, table_shape, res, aabb_min, aabb_len, variant):
+    """Plain version of the table gradient (the JAX ``_gather_cols_f32_bwd``):
+    every corner adds w * g into a zero (L, T, F) f32 table with
+    ``index_add_``, straight through the forward's bf16 read."""
+    n_levels, table_size, n_feat = table_shape
+    entries, weights = _corners_and_weights(xyz, res, aabb_min, aabb_len, table_size, variant)
+    g = g.reshape(xyz.shape[0], n_levels, n_feat)
+    level_off = (torch.arange(n_levels, device=xyz.device, dtype=torch.int64) * table_size)[None, :]
+    grad = torch.zeros(n_levels * table_size, n_feat, dtype=torch.float32, device=xyz.device)
+    for e, w in zip(entries, weights):
+        grad.index_add_(0, (e + level_off).reshape(-1), (g * w[..., None]).reshape(-1, n_feat))
+    return grad.reshape(table_shape)
+
+
+def _kernel_args(xyz, table_shape, res, res_dev, name):
+    n_levels, table_size, n_feat = table_shape
     log2_t = int(table_size).bit_length() - 1
     if 1 << log2_t != table_size:
-        raise ValueError("hash_encode: the table size must be a power of two")
+        raise ValueError("{}: the table size must be a power of two".format(name))
     if res_dev is None:
         res_dev = torch.as_tensor(np.asarray(res), dtype=torch.int32, device=xyz.device)
+    return n_levels, log2_t, n_feat, res_dev
+
+
+def hash_encode_fwd(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
+    """Kernel B on CUDA tensors -> (B, L * F) f32, or raises."""
+    cuda_lib.require_cuda("hash_encode", xyz, table)
+    n_levels, log2_t, n_feat, res_dev = _kernel_args(xyz, table.shape, res, res_dev, "hash_encode")
     out = torch.empty((xyz.shape[0], n_levels * n_feat), dtype=torch.float32, device=xyz.device)
     if xyz.shape[0] == 0:
         return out
@@ -193,7 +217,64 @@ def hash_encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, re
     return out
 
 
+def hash_encode_bwd(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_dev=None):
+    """Table gradient (L, T, F) f32 of the encoding for its gradient ``g``
+    (B, L * F). A CPU tensor takes ``hash_encode_bwd_reference``; a CUDA
+    tensor launches kernel E or raises."""
+    if xyz.device.type == "cpu":
+        return hash_encode_bwd_reference(xyz, g, table_shape, res, aabb_min, aabb_len, variant)
+    cuda_lib.require_cuda("hash_encode_bwd", xyz, g)
+    n_levels, log2_t, n_feat, res_dev = _kernel_args(xyz, table_shape, res, res_dev, "hash_encode_bwd")
+    grad = torch.zeros(tuple(table_shape), dtype=torch.float32, device=xyz.device)
+    if xyz.shape[0] == 0:
+        return grad
+    status = cuda_lib.lib().arcnerf_hash_encode_bwd(
+        xyz.data_ptr(), xyz.shape[0], g.data_ptr(), n_levels, log2_t, n_feat, res_dev.data_ptr(),
+        cuda_lib.float3(aabb_min), cuda_lib.float3(aabb_len), _VARIANTS[variant], grad.data_ptr(),
+        cuda_lib.stream_handle(xyz.device))
+    cuda_lib.check(status, "hash_encode_bwd")
+    hash_encode_bwd.launches += 1
+    return grad
+
+
+class _HashEncodeFunction(torch.autograd.Function):
+    """Encoding with the table scatter as its backward: kernels B and E on
+    the card, their plain versions on the CPU. No xyz gradient."""
+
+    @staticmethod
+    def forward(ctx, xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev):
+        if xyz.device.type == "cpu":
+            out = hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16)
+        else:
+            out = hash_encode_fwd(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+        ctx.save_for_backward(xyz)
+        ctx.args = (tuple(table.shape), res, aabb_min, aabb_len, variant, res_dev)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (xyz,) = ctx.saved_tensors
+        table_shape, res, aabb_min, aabb_len, variant, res_dev = ctx.args
+        grad = hash_encode_bwd(xyz, g.contiguous(), table_shape, res, aabb_min, aabb_len, variant, res_dev)
+        return None, grad, None, None, None, None, None, None
+
+
+def hash_encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
+    """Hash-grid encoding. A CPU tensor takes the plain versions; a CUDA
+    tensor launches kernel B, and kernel E in the backward, or raises.
+    ``res_dev`` optionally gives ``res`` as an int32 tensor already on the
+    device."""
+    if xyz.device.type != "cpu":
+        cuda_lib.require_cuda("hash_encode", xyz, table)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _HashEncodeFunction.apply(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+    if xyz.device.type == "cpu":
+        return hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16)
+    return hash_encode_fwd(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+
+
 hash_encode.launches = 0
+hash_encode_bwd.launches = 0
 
 
 @ENCODER_REGISTRY.register()

@@ -2,15 +2,16 @@
 
 Counterpart of ``arcnerf_tpu/models/base_modules/obj_bound.py``: the
 per-ray inference sample cap, the occupancy mask, ``build_obj_bound``,
-``BasicBound`` and ``VolumeBound``'s state, near/far and occupancy-culled
-sampling in ladder order (``keep_order=True``). Bounds hold static geometry
-only; the occupancy state is an explicit dict of tensors.
-``VolumeBound.optimize`` (the occupancy update) lands with training.
+``BasicBound`` and ``VolumeBound``'s state, near/far, occupancy-culled
+sampling in ladder order (``keep_order=True``) with the training jitter,
+and ``VolumeBound.optimize``, the occupancy update. Bounds hold static
+geometry only; the occupancy state is an explicit dict of tensors, and the
+draws come from a ``torch.Generator`` (or are fed explicitly by tests).
 """
 
 import torch
 
-from ...geometry.volume import Volume
+from ...geometry.volume import Volume, convert_flatten_index_to_xyz_index
 from ...render.ray_helper import get_near_far_from_rays, get_zvals_from_near_far, get_zvals_from_near_far_fix_step
 from ...utils.cfgs import get_value_from_cfgs_field, valid_key_in_cfgs
 from ...utils.registry import BOUND_REGISTRY
@@ -45,7 +46,7 @@ def build_obj_bound(cfgs):
     if "volume" in keys:
         return VolumeBound(cfgs.obj_bound), "volume"
     if "sphere" in keys or "bitfield" in keys:
-        raise NotImplementedError("SphereBound/BitfieldBound are not ported yet (ROADMAP Queue 1, item 9)")
+        raise NotImplementedError("SphereBound/BitfieldBound are not ported yet (ROADMAP Queue 1, item 4)")
     return BasicBound(cfgs.obj_bound), "basic"
 
 
@@ -80,9 +81,11 @@ class BasicBound:
         return near, far, None
 
     def get_zvals_from_near_far(self, state, near, far, n_pts, inference_only=False, inverse_linear=False,
-                                rays_o=None, rays_d=None, keep_order=False):
-        """-> zvals (B, n_pts), mask_pts (B, n_pts)|None."""
-        return get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear), None
+                                perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False):
+        """-> zvals (B, n_pts), mask_pts (B, n_pts)|None. With ``perturb``
+        outside inference the zvals are jittered from ``generator``."""
+        jitter = generator if perturb and not inference_only else None
+        return get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear, generator=jitter), None
 
 
 @BOUND_REGISTRY.register()
@@ -114,7 +117,7 @@ class VolumeBound(BasicBound):
         params["eval_max_pts_per_ray"] = get_value_from_cfgs_field(self.cfgs, "eval_max_pts_per_ray", None)
         if get_value_from_cfgs_field(self.cfgs, "eval_cap_window", False):
             raise NotImplementedError("windowed rendering (eval_cap_window) is not ported yet "
-                                      "(ROADMAP Queue 1, item 8)")
+                                      "(ROADMAP Queue 1, item 3)")
         return params
 
     def init_state(self, device=None):
@@ -130,18 +133,67 @@ class VolumeBound(BasicBound):
         return near, far, mask[:, 0]
 
     def get_zvals_from_near_far(self, state, near, far, n_pts, inference_only=False, inverse_linear=False,
-                                rays_o=None, rays_d=None, keep_order=False):
+                                perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False):
         use_acc = self.get_optim_cfgs("epoch_optim") is not None and self.get_optim_cfgs("ray_sample_acc")
         if not use_acc or "bitfield" not in state:
-            return super().get_zvals_from_near_far(state, near, far, n_pts, inference_only, inverse_linear)
+            return super().get_zvals_from_near_far(state, near, far, n_pts, inference_only, inverse_linear, perturb,
+                                                   generator)
         if not keep_order:
             raise NotImplementedError("left-compacted sampling (handle_valid_mask_zvals) is not ported yet "
-                                      "(ROADMAP Queue 1, item 9)")
+                                      "(ROADMAP Queue 1, item 4)")
+        jitter = generator if perturb and not inference_only else None
         if self.get_optim_cfgs("ray_sample_fix_step"):
             fix_t = self.volume.get_diag_len() / n_pts
-            zvals, mask_pts = get_zvals_from_near_far_fix_step(near, far, fix_t, n_pts)
+            zvals, mask_pts = get_zvals_from_near_far_fix_step(near, far, fix_t, n_pts, generator=jitter)
         else:
-            zvals = get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear)
+            zvals = get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear, generator=jitter)
             mask_pts = torch.ones_like(zvals, dtype=torch.bool)
         mask_pts = mask_pts & _occ_mask_soa(self.volume, state["bitfield"], rays_o, rays_d, zvals)
         return zvals, _cap_pts_per_ray(mask_pts, inference_only, self.get_optim_cfgs("eval_max_pts_per_ray"))
+
+    def optimize(self, state, cur_epoch=0, n_pts=128, get_est_opacity=None, generator=None, flat_idx=None,
+                 noise_u=None):
+        """Opacity-EMA voxel pruning (JAX ``VolumeBound.optimize``).
+
+        Warmup (cur_epoch < epoch_optim_warmup): evaluate every voxel
+        centre. After: n_voxel/4 voxels drawn uniformly without replacement
+        (``randperm``) plus n_voxel/4 drawn with replacement from the
+        occupied ones (``multinomial``; uniform when none is occupied,
+        where the JAX draw is undefined). Each point is jittered within
+        its voxel by ``noise_u`` - 0.5 voxel. ``flat_idx`` and ``noise_u``
+        (uniform, (N, 3)) may be fed to reproduce given draws; else they
+        come from ``generator``. Returns the new {bitfield, opafield}."""
+        if not state or get_est_opacity is None:
+            return state
+        warmup_until = self.get_optim_cfgs("epoch_optim_warmup")
+        vol = self.volume
+        n_voxel = vol.get_n_voxel()
+        bitfield, opafield = state["bitfield"], state["opafield"]
+        dev = bitfield.device
+        if flat_idx is None:
+            if warmup_until is not None and cur_epoch < warmup_until:
+                flat_idx = torch.arange(n_voxel, device=dev)
+            else:
+                n_sample = n_voxel // 4
+                uni = torch.randperm(n_voxel, generator=generator, device=dev)[:n_sample]
+                occ_p = bitfield.reshape(-1).to(torch.float32)
+                occ_p = torch.where(occ_p.sum() > 0, occ_p, torch.ones_like(occ_p))
+                occ = torch.multinomial(occ_p, n_sample, replacement=True, generator=generator)
+                flat_idx = torch.cat([uni, occ])
+        flat_idx = flat_idx.to(device=dev, dtype=torch.int64)
+        pts = vol.get_voxel_pts_by_voxel_idx(convert_flatten_index_to_xyz_index(flat_idx, vol.get_n_grid()))
+        if noise_u is None:
+            noise_u = torch.rand(pts.shape, generator=generator, device=dev)
+        pts = pts + (noise_u - 0.5) * vol.get_voxel_size(to_list=False, device=dev)
+
+        opacity = get_est_opacity(vol.get_diag_len() / float(n_pts), pts)  # (N,)
+        # per-voxel max (segment max) and the sampled set
+        opa_max = torch.full((n_voxel,), -torch.inf, device=dev).scatter_reduce(0, flat_idx, opacity, "amax")
+        sampled = torch.zeros((n_voxel,), dtype=torch.bool, device=dev).index_fill(0, flat_idx, True)
+        old = opafield.reshape(-1)
+        new = torch.maximum(old * self.get_optim_cfgs("ema_optim_decay"), opa_max)
+        new = torch.where(sampled & (old >= 0), new, old)
+        opafield = new.reshape(opafield.shape)
+        bitfield = vol.update_bitfield_by_opafield(bitfield, opafield, threshold=self.get_optim_cfgs("opa_thres"),
+                                                   ops="overwrite")
+        return {"bitfield": bitfield, "opafield": opafield}

@@ -3,9 +3,10 @@ the valid samples into one stream, and compositing on that stream.
 
 Counterpart of ``arcnerf_tpu/models/fg_model.py`` (``__call__``,
 ``_compact_sel_aux``, ``_compact_budget``, ``fused_render_by_mask_pts``,
-``update_values_for_invalid_rays``), at inference. The dense scatter-back
-path (``get_sigma_radiance_by_mask_pts`` + ``ray_marching``) and the
-training-time draws (sample jitter, sigma noise) are not ported.
+``update_values_for_invalid_rays``), at inference and in training. The
+training draws (sample jitter, sigma noise) come from a ``torch.Generator``
+passed down from the trainer. The dense scatter-back path
+(``get_sigma_radiance_by_mask_pts`` + ``ray_marching``) is not ported.
 """
 
 import torch
@@ -58,33 +59,38 @@ class FgModel(Base3dModel):
         return not (bkg is not None and get_value_from_cfgs_field(bkg, "bkg_blend", "rgb") == "sigma")
 
     # -------------------------------------------------------------- forward
-    def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None):
+    def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None, generator=None):
         """Render flat rays: inputs rays_o/rays_d (B, 3) (+ bkg_color (B, 3)).
-        Returns per-ray rgb/depth/mask and n_valid_pts."""
-        if not inference_only:
-            raise NotImplementedError("the training forward is not ported yet (ROADMAP Queue 1, next item 2)")
+        Returns per-ray rgb/depth/mask (suffixed ``_coarse`` in training)
+        and n_valid_pts. In training (``inference_only=False``) the zvals
+        are jittered when rays.perturb is set, and sigma noised when
+        rays.noise_std > 0, with draws from ``generator``."""
         if get_progress:
-            raise NotImplementedError("per-sample progress outputs are not ported yet (ROADMAP Queue 1, item 8)")
+            raise NotImplementedError("per-sample progress outputs are not ported yet (ROADMAP Queue 1, item 3)")
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
         near, far, mask_rays = self.get_near_far_from_rays(inputs, bound_state)
-        # the inference ladder may be coarser than training's (eval_n_sample)
-        n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or self.get_ray_cfgs("n_sample"))
+        near, far = near.detach(), far.detach()
+        n_coarse = self.get_ray_cfgs("n_sample")
+        if inference_only:
+            # the inference ladder may be coarser than training's (eval_n_sample)
+            n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
         zvals, mask_pts = self.obj_bound.get_zvals_from_near_far(
-            bound_state or {}, near, far, n_coarse, True, self.get_ray_cfgs("inverse_linear"), rays_o=rays_o,
-            rays_d=rays_d, keep_order=self.use_scattered_masks())
-        inputs = dict(inputs, zvals=zvals, mask_pts=mask_pts)
+            bound_state or {}, near, far, n_coarse, inference_only, self.get_ray_cfgs("inverse_linear"),
+            self.get_ray_cfgs("perturb"), generator, rays_o=rays_o, rays_d=rays_d,
+            keep_order=self.use_scattered_masks())
+        inputs = dict(inputs, zvals=zvals.detach(), mask_pts=mask_pts)
         if mask_pts is not None:
             ray_has_pts = mask_pts.any(dim=1)
             mask_rays = ray_has_pts if mask_rays is None else (mask_rays & ray_has_pts)
 
-        output = self._forward(inputs)
+        output = self._forward(inputs, inference_only, generator)
         if mask_rays is not None:
             output = self.update_values_for_invalid_rays(output, mask_rays, inputs.get("bkg_color"))
         if mask_pts is not None:
             output["n_valid_pts"] = mask_pts.sum()
         return output
 
-    def _forward(self, inputs):
+    def _forward(self, inputs, inference_only=True, generator=None):
         raise NotImplementedError("implement _forward in the concrete model")
 
     # ----------------------------------------------------------- compaction
@@ -121,17 +127,19 @@ class FgModel(Base3dModel):
         return budget
 
     def fused_render_by_mask_pts(self, geo_net, radiance_net, rays_o, rays_d, zvals, mask_pts, inference_only=True,
-                                 bkg_color=None):
+                                 bkg_color=None, generator=None):
         """Compacted-stream render: evaluate sigma/radiance on the budgeted
-        valid samples and composite them there (``segment_march``, kernel C
-        on the card). Where the budget covers every sample the stream holds
-        them all, which integrates exactly as the JAX package's dense path
-        does (it switches to that path there). Returns {rgb, depth, mask}."""
+        valid samples and composite them there (``segment_march``, kernels C
+        and F on the card). Where the budget covers every sample the stream
+        holds them all, which integrates exactly as the JAX package's dense
+        path does (it switches to that path there). In training, sigma gets
+        N(0, noise_std) noise from ``generator`` when rays.noise_std > 0.
+        Returns {rgb, depth, mask}."""
         n_rays, n_pts = zvals.shape
         budget = self._compact_budget(n_rays, inference_only)
         if mask_pts is None or not isinstance(budget, int) or budget <= 0:
             raise NotImplementedError("the dense sample path (no occupancy mask or no log_max_allowance) is "
-                                      "not ported yet (ROADMAP Queue 1, item 9)")
+                                      "not ported yet (ROADMAP Queue 1, item 4)")
         budget = min(budget, n_rays * n_pts)
         sel, _, off, cnt = self._compact_sel_aux(mask_pts, budget)
         ray_id = sel // n_pts
@@ -140,8 +148,12 @@ class FgModel(Base3dModel):
         pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
 
         sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
+        noise = None
+        noise_std = 0.0 if inference_only else float(self.get_ray_cfgs("noise_std") or 0.0)
+        if noise_std > 0.0 and generator is not None:
+            noise = torch.randn(sigma_c.shape, generator=generator, device=sigma_c.device) * noise_std
         out = segment_march(sigma_c, radiance_c, z_sel, off, cnt, add_inf_z=self.get_ray_cfgs("add_inf_z"),
-                            white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color)
+                            white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise)
         out.pop("trans_end")
         return out
 

@@ -22,16 +22,22 @@ class FullModel(nn.Module):
     def init_bound_state(self, device=None):
         return {"fg": self.fg_model.init_bound_state(device)}
 
-    def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None):
+    def get_est_opacity(self, dt, pts):
+        return self.fg_model.get_est_opacity(dt, pts)
+
+    def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None, generator=None):
         """inputs: rays_o/rays_d (B, N_rays, 3) (+ bkg_color (B, N_rays, 3)).
-        Returns per-ray outputs shaped (B, N_rays, ...)."""
+        Returns per-ray outputs shaped (B, N_rays, ...): rgb/depth/mask at
+        inference, rgb_coarse/depth_coarse/mask_coarse in training, whose
+        draws come from ``generator``."""
         batch_size, n_rays = inputs["rays_o"].shape[:2]
         flat = {}
         for k, v in inputs.items():
             if v is not None and v.ndim >= 2 and v.shape[:2] == (batch_size, n_rays):
                 flat[k] = v.reshape((batch_size * n_rays,) + v.shape[2:])
         bound_state = bound_state or {}
-        output = self.fg_model(flat, inference_only, get_progress, bound_state=bound_state.get("fg", bound_state))
+        output = self.fg_model(flat, inference_only, get_progress, bound_state=bound_state.get("fg", bound_state),
+                               generator=generator)
         for k, v in output.items():
             if v.ndim >= 1 and v.shape[0] == batch_size * n_rays:
                 output[k] = v.reshape((batch_size, n_rays) + v.shape[1:])

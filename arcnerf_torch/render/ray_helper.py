@@ -1,13 +1,16 @@
-"""Ray generation, z-value sampling, and compositing on the compacted stream
-with kernel C.
+"""Ray generation, z-value sampling with its training jitter, and
+compositing on the compacted stream with kernels C and F.
 
 Counterpart of ``arcnerf_tpu/render/ray_helper.py`` (get_rays,
 get_near_far_from_rays, get_zvals_from_near_far,
-get_zvals_from_near_far_fix_step, segment_march). ``segment_march``
-replaces the JAX scan-and-cumsum formulation with the CUDA kernel in
-``csrc/segment_march.cu``; ``segment_march_reference`` is the plain
-version. Only the deterministic (inference) forms are ported: no sample
-jitter, no random ray picks, no NDC rays.
+get_zvals_from_near_far_fix_step, perturb_interval,
+perturb_interval_with_mask, segment_march). ``segment_march`` replaces the
+JAX scan-and-cumsum formulation with the CUDA kernel in
+``csrc/segment_march.cu`` and its gradient with ``csrc/segment_march_bwd.cu``;
+``segment_march_reference`` and ``segment_march_bwd_reference`` are the
+plain versions. The jitter takes a ``torch.Generator`` or an explicit
+uniform tensor (the JAX package draws ``jax.random.uniform``). NDC rays are
+not ported.
 """
 
 import torch
@@ -96,8 +99,10 @@ def get_near_far_from_rays(rays_o, rays_d, bounds=None, near_hardcode=None, far_
     return near, far
 
 
-def get_zvals_from_near_far(near, far, n_pts, inclusive=True, inverse_linear=False):
-    """Evenly spaced zvals in (near, far). near/far (N_rays, 1) -> (N_rays, n_pts)."""
+def get_zvals_from_near_far(near, far, n_pts, inclusive=True, inverse_linear=False, generator=None, rand=None):
+    """Evenly spaced zvals in (near, far), jittered within their intervals
+    when a ``generator`` or a uniform ``rand`` is given. near/far
+    (N_rays, 1) -> (N_rays, n_pts)."""
     if inclusive:
         t = torch.linspace(0.0, 1.0, n_pts, dtype=near.dtype, device=near.device)
     else:
@@ -106,11 +111,15 @@ def get_zvals_from_near_far(near, far, n_pts, inclusive=True, inverse_linear=Fal
         zvals = 1.0 / (1.0 / (near + 1e-8) * (1.0 - t) + 1.0 / (far + 1e-8) * t)
     else:
         zvals = near + (far - near) * t
+    if generator is not None or rand is not None:
+        zvals = perturb_interval(zvals, generator, rand)
     return zvals
 
 
-def get_zvals_from_near_far_fix_step(near, far, fix_t, n_pts, inclusive=True):
-    """Constant-step zvals clamped at far; duplicated tail points masked out.
+def get_zvals_from_near_far_fix_step(near, far, fix_t, n_pts, inclusive=True, generator=None, rand=None):
+    """Constant-step zvals clamped at far; duplicated tail points masked out;
+    the valid samples jittered when a ``generator`` or a uniform ``rand``
+    is given.
 
     Returns zvals (N_rays, n_pts), mask_pts (N_rays, n_pts).
     """
@@ -119,7 +128,33 @@ def get_zvals_from_near_far_fix_step(near, far, fix_t, n_pts, inclusive=True):
     step = torch.arange(n_pts, dtype=near.dtype, device=near.device)[None]
     zvals = torch.minimum(torch.maximum(start + step * fix_t, near), far)
     dup = torch.cat([torch.zeros_like(zvals[:, :1], dtype=torch.bool), (zvals[:, 1:] - zvals[:, :-1]) == 0.0], 1)
-    return zvals, ~dup
+    mask_pts = ~dup
+    if generator is not None or rand is not None:
+        zvals = perturb_interval_with_mask(zvals, mask_pts, generator, rand)
+    return zvals, mask_pts
+
+
+def perturb_interval(vals, generator=None, rand=None):
+    """Jitter each sample uniformly within its interval: (B, N) -> (B, N).
+    ``rand`` (B, N) uniform draws, else drawn from ``generator``."""
+    mids = 0.5 * (vals[..., 1:] + vals[..., :-1])
+    upper = torch.cat([mids, vals[..., -1:]], -1)
+    lower = torch.cat([vals[..., :1], mids], -1)
+    if rand is None:
+        rand = torch.rand(upper.shape, generator=generator, dtype=vals.dtype, device=vals.device)
+    return lower + (upper - lower) * rand
+
+
+def perturb_interval_with_mask(vals, mask=None, generator=None, rand=None):
+    """Perturb only valid samples; the invalid tail keeps the last valid
+    value, and every sample stays within [first, last valid]."""
+    perturbed = perturb_interval(vals, generator, rand)
+    if mask is None:
+        return perturbed
+    vals = torch.where(mask, perturbed, vals)
+    n_valid = (mask.sum(1) - 1).clamp_min(0)
+    last_value = vals.gather(1, n_valid[:, None])
+    return torch.minimum(torch.maximum(vals, vals[:, 0:1]), last_value)
 
 
 def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False):
@@ -161,28 +196,62 @@ def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=N
     return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
 
 
-def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False, bkg_color=None):
-    """Alpha compositing over a COMPACTED sample stream.
+def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None,
+                                white_bkg=False):
+    """Plain version of the gradient of the compositing with respect to
+    sigma (K,) and radiance (K, 3), given those of rgb (N_rays, 3), depth and
+    mask (N_rays,). The same recurrence as kernel F, walked over the
+    columns of the gathered (N_rays, max cnt) grid: with o_i = 1 - alpha_i
+    + 1e-10, T_i the exclusive transmittance and G_i = dM + z_i dD + c_i . dRGB
+    (minus sum(dRGB) under ``white_bkg``), R starts at bkg . dRGB and goes
+    back as R <- alpha_i G_i + o_i R; dalpha_i = T_i (G_i - R_i). Rows past
+    every segment get 0."""
+    k_total = sigma.shape[0]
+    start = off.clamp_max(k_total)
+    n = (off + cnt).clamp_max(k_total) - start
+    m = max(int(n.max()) if n.numel() else 0, 1)
+    pos = torch.arange(m, device=sigma.device)[None]
+    inseg = pos < n[:, None]
+    idx = torch.where(inseg, start[:, None] + pos, 0)
+    zs = torch.where(inseg, z[idx], 0.0)
+    z_next = torch.cat([zs[:, 1:], zs[:, -1:]], 1)
+    has_next = torch.cat([inseg[:, 1:], torch.zeros_like(inseg[:, :1])], 1)
+    deltas = torch.where(has_next, z_next - zs, 0.0)
+    deltas = torch.where(deltas.abs() < 1e-5, 0.0, deltas)
+    if add_inf_z:
+        deltas = torch.where(inseg & ~has_next, 1e10, deltas)
+    s_raw = torch.where(inseg, sigma[idx], 0.0)
+    ex = torch.exp(-s_raw.relu().clamp_max(1e10) * deltas)
+    alpha = torch.where(inseg, 1.0 - ex, 0.0)
+    o = 1.0 - alpha + 1e-10
+    trans = torch.cat([torch.ones_like(o[:, :1]), torch.cumprod(o, dim=1)[:, :-1]], 1)
+    c = torch.where(inseg[..., None], radiance[idx], 0.0)
+    G = g_mask[:, None] + zs * g_depth[:, None] + (c * g_rgb[:, None, :]).sum(-1)
+    if bkg is not None:
+        R = (bkg * g_rgb).sum(-1)
+    else:
+        R = torch.zeros_like(g_mask)
+        if white_bkg:
+            G = G - g_rgb.sum(-1, keepdim=True)
+    d_alpha = torch.zeros_like(alpha)
+    for j in reversed(range(m)):
+        d_alpha[:, j] = trans[:, j] * (G[:, j] - R)
+        R = torch.where(inseg[:, j], alpha[:, j] * G[:, j] + o[:, j] * R, R)
+    active = inseg & (s_raw > 0) & (s_raw < 1e10)
+    d_s = torch.where(active, d_alpha * deltas * ex, 0.0)
+    ray = torch.arange(off.shape[0], device=sigma.device)[:, None].expand_as(idx)
+    d_sigma = torch.zeros_like(sigma)
+    d_sigma[idx[inseg]] = d_s[inseg]
+    d_rgb = torch.zeros_like(radiance)
+    d_rgb[idx[inseg]] = (trans * alpha)[inseg][:, None] * g_rgb[ray[inseg]]
+    return d_sigma, d_rgb
 
-    sigma (K,), radiance (K, 3), z (K,) hold the stream (first sum(cnt)
-    rows real, the tail is budget padding whose ray is arbitrary); off
-    (N_rays,) is each ray's unclipped exclusive start rank and cnt (N_rays,)
-    its in-stream sample count. ``bkg_color`` (3,) or (N_rays, 3) is
-    composited with the end transmittance; else ``white_bkg`` fills
-    1 - mask.
 
-    A CPU tensor takes ``segment_march_reference``; a CUDA tensor launches
-    kernel C or raises. Returns rgb (N_rays, 3), depth, mask, trans_end."""
-    n_rays = off.shape[0]
-    bkg = None
-    if bkg_color is not None:
-        bkg = torch.as_tensor(bkg_color, dtype=torch.float32, device=z.device).expand(n_rays, 3).contiguous()
-    if z.device.type == "cpu":
-        return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False):
+    """Kernel C on CUDA tensors -> {rgb, depth, mask, trans_end}, or raises."""
     cuda_lib.require_cuda("segment_march", sigma, radiance, z)
-    if torch.is_grad_enabled() and (sigma.requires_grad or radiance.requires_grad):
-        raise RuntimeError("segment_march: the CUDA backward kernel is not ported yet (inference only)")
     cuda_lib.require_cuda("segment_march", off, cnt, dtype=torch.int64)
+    n_rays = off.shape[0]
     out = {
         "rgb": torch.empty((n_rays, 3), dtype=torch.float32, device=z.device),
         "depth": torch.empty((n_rays,), dtype=torch.float32, device=z.device),
@@ -201,4 +270,87 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
     return out
 
 
+def segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None,
+                      white_bkg=False):
+    """Gradients (d_sigma (K,), d_radiance (K, 3)) of the compositing. A CPU
+    tensor takes ``segment_march_bwd_reference``; a CUDA tensor launches
+    kernel F or raises."""
+    if z.device.type == "cpu":
+        return segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg,
+                                           white_bkg)
+    cuda_lib.require_cuda("segment_march_bwd", sigma, radiance, z, g_rgb, g_depth, g_mask)
+    cuda_lib.require_cuda("segment_march_bwd", off, cnt, dtype=torch.int64)
+    d_sigma, d_rgb = torch.zeros_like(sigma), torch.zeros_like(radiance)
+    n_rays = off.shape[0]
+    if n_rays == 0:
+        return d_sigma, d_rgb
+    status = cuda_lib.lib().arcnerf_segment_march_bwd(
+        sigma.data_ptr(), radiance.data_ptr(), z.data_ptr(), off.data_ptr(), cnt.data_ptr(), n_rays, z.shape[0],
+        int(bool(add_inf_z)), bkg.data_ptr() if bkg is not None else None, int(bool(white_bkg)), g_rgb.data_ptr(),
+        g_depth.data_ptr(), g_mask.data_ptr(), d_sigma.data_ptr(), d_rgb.data_ptr(), cuda_lib.stream_handle(z.device))
+    cuda_lib.check(status, "segment_march_bwd")
+    segment_march_bwd.launches += 1
+    return d_sigma, d_rgb
+
+
+class _SegmentMarchFunction(torch.autograd.Function):
+    """Compositing with its sigma/radiance gradient: kernels C and F on the
+    card, their plain versions on the CPU. trans_end carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, sigma, radiance, z, off, cnt, bkg, add_inf_z, white_bkg):
+        if z.device.type == "cpu":
+            out = segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+        else:
+            out = segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+        ctx.save_for_backward(sigma, radiance, z, off, cnt, bkg)
+        ctx.flags = (add_inf_z, white_bkg)
+        ctx.mark_non_differentiable(out["trans_end"])
+        return out["rgb"], out["depth"], out["mask"], out["trans_end"]
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_depth, g_mask, _g_trans_end):
+        sigma, radiance, z, off, cnt, bkg = ctx.saved_tensors
+        n_rays = off.shape[0]
+        g_rgb = torch.zeros((n_rays, 3), device=z.device) if g_rgb is None else g_rgb.contiguous()
+        g_depth = torch.zeros((n_rays,), device=z.device) if g_depth is None else g_depth.contiguous()
+        g_mask = torch.zeros((n_rays,), device=z.device) if g_mask is None else g_mask.contiguous()
+        add_inf_z, white_bkg = ctx.flags
+        d_sigma, d_rgb = segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg,
+                                           white_bkg)
+        return d_sigma, d_rgb, None, None, None, None, None, None
+
+
+def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False, bkg_color=None, noise=None):
+    """Alpha compositing over a COMPACTED sample stream.
+
+    sigma (K,), radiance (K, 3), z (K,) hold the stream (first sum(cnt)
+    rows real, the tail is budget padding whose ray is arbitrary); off
+    (N_rays,) is each ray's unclipped exclusive start rank and cnt (N_rays,)
+    its in-stream sample count. ``bkg_color`` (3,) or (N_rays, 3) is
+    composited with the end transmittance; else ``white_bkg`` fills
+    1 - mask. ``noise`` (K,) is added to sigma first (the JAX ``noise``,
+    pre-drawn).
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches kernel C,
+    and kernel F in the backward, or raises. Returns rgb (N_rays, 3), depth,
+    mask, trans_end."""
+    n_rays = off.shape[0]
+    bkg = None
+    if bkg_color is not None:
+        bkg = torch.as_tensor(bkg_color, dtype=torch.float32, device=z.device).expand(n_rays, 3).contiguous()
+    if noise is not None:
+        sigma = sigma + noise
+    if z.device.type != "cpu":
+        cuda_lib.require_cuda("segment_march", sigma, radiance, z)
+    if torch.is_grad_enabled() and (sigma.requires_grad or radiance.requires_grad):
+        rgb, depth, mask, trans_end = _SegmentMarchFunction.apply(sigma.contiguous(), radiance.contiguous(), z, off,
+                                                                  cnt, bkg, add_inf_z, white_bkg)
+        return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
+    if z.device.type == "cpu":
+        return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+
+
 segment_march.launches = 0
+segment_march_bwd.launches = 0

@@ -157,3 +157,10 @@ def get_value_from_cfgs_field(cfgs, key, default=None):
     else:
         val = getattr(cfgs, key, None)
     return default if val is None else val
+
+
+def dump_configs(cfgs, path):
+    """Write the config tree as YAML (the run's record of its settings)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(obj_to_dict(cfgs), f, sort_keys=False)

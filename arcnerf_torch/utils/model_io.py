@@ -4,8 +4,12 @@ A port checkpoint is one ``torch.save`` of
 ``{"step", "state_dict", "bound_state", "meta"}``: the FullModel's state
 dict, its occupancy state (``{"fg": {"bitfield", "opafield"}}``) and
 compatibility markers (``meta.hash_variant``, checked at load as the JAX
-package checks it). ``state_from_jax`` maps a JAX ``FullModel`` param tree
-and bound state (nested dicts of numpy arrays) onto the port's names.
+package checks it). A training checkpoint adds ``"adam"`` (the Adam state
+per parameter name) and ``"ema"`` when EMA is on. ``state_from_jax`` maps a
+JAX ``FullModel`` param tree and bound state (nested dicts of numpy arrays)
+onto the port's names; ``adam_state_from_jax`` maps the optax Adam state
+(``count``, ``mu``, ``nu``) onto ``torch.optim.Adam``'s, so that a JAX
+training state resumes in the port.
 """
 
 import os
@@ -30,23 +34,42 @@ def check_ckpt_meta(meta, expected_meta, path=""):
                 path, k, got, k, want))
 
 
-def save_model(path, state_dict, bound_state, meta=None, step=0):
-    """Write a port checkpoint (tensors moved to the CPU)."""
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def save_model(path, state_dict, bound_state, meta=None, step=0, adam=None, ema=None):
+    """Write a port checkpoint (tensors moved to the CPU). ``adam``: the
+    Adam state by parameter name ({name: {step, exp_avg, exp_avg_sq}});
+    ``ema``: the EMA shadows by name."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     record = {
         "step": int(step),
-        "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
-        "bound_state": {name: {k: v.detach().cpu() for k, v in sub.items()} for name, sub in bound_state.items()},
+        "state_dict": _to_cpu(dict(state_dict)),
+        "bound_state": _to_cpu(dict(bound_state)),
         "meta": dict(meta or {}),
     }
+    if adam is not None:
+        record["adam"] = _to_cpu(adam)
+    if ema is not None:
+        record["ema"] = _to_cpu(ema)
     torch.save(record, path)
+
+
+def load_record(path, expected_meta=None, device=None):
+    """Read a whole port checkpoint dict, tensors on ``device``.
+    ``expected_meta`` hard-fails on a marker mismatch."""
+    record = torch.load(path, map_location=device, weights_only=True)
+    check_ckpt_meta(record.get("meta"), expected_meta, path)
+    return record
 
 
 def load_model(path, expected_meta=None, device=None):
     """Read a port checkpoint -> (state_dict, bound_state, step), tensors on
     ``device``. ``expected_meta`` hard-fails on a marker mismatch."""
-    record = torch.load(path, map_location=device, weights_only=True)
-    check_ckpt_meta(record.get("meta"), expected_meta, path)
+    record = load_record(path, expected_meta, device)
     return record["state_dict"], record["bound_state"], record["step"]
 
 
@@ -56,6 +79,13 @@ def _flatten(tree, prefix=()):
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def _port_name(path):
+    names = [_JAX_SCOPES.get(p, p) for p in path]
+    if names[-1] == "kernel":
+        names = names[:-1]
+    return ".".join(names)
 
 
 def state_from_jax(params_np, bound_state_np):
@@ -68,13 +98,27 @@ def state_from_jax(params_np, bound_state_np):
     a ``kernel`` leaf folds into its layer)."""
     state = {}
     for path, value in _flatten(params_np):
-        names = [_JAX_SCOPES.get(p, p) for p in path]
-        if names[-1] == "kernel":
-            names = names[:-1]
-        state[".".join(names)] = torch.from_numpy(np.array(value, dtype=np.float32))
+        state[_port_name(path)] = torch.from_numpy(np.array(value, dtype=np.float32))
     bound = {}
     for path, value in _flatten(bound_state_np):
         arr = np.array(value)
         sub = bound.setdefault(path[0], {})
         sub[".".join(path[1:])] = torch.from_numpy(arr)
     return state, bound
+
+
+def adam_state_from_jax(count, mu_np, nu_np):
+    """The optax Adam state - ``count`` (updates applied) and the ``mu`` /
+    ``nu`` moment trees shaped like the params, as nested dicts of numpy
+    arrays - -> the port's Adam state by parameter name:
+    {name: {"step", "exp_avg", "exp_avg_sq"}}. The two optimizers keep the
+    same moments and the same bias correction (1 - beta^count), so the
+    values carry over unchanged."""
+    nu = {_port_name(path): v for path, v in _flatten(nu_np)}
+    out = {}
+    for path, m in _flatten(mu_np):
+        name = _port_name(path)
+        out[name] = {"step": torch.tensor(float(count)),
+                     "exp_avg": torch.from_numpy(np.array(m, dtype=np.float32)),
+                     "exp_avg_sq": torch.from_numpy(np.array(nu[name], dtype=np.float32))}
+    return out

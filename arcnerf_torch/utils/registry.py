@@ -48,3 +48,4 @@ GEO_MODEL_REGISTRY = Registry("GEO_MODEL")
 RADIANCE_MODEL_REGISTRY = Registry("RADIANCE_MODEL")
 BOUND_REGISTRY = Registry("BOUND")
 DATASET_REGISTRY = Registry("DATASET")
+LOSS_REGISTRY = Registry("LOSS")
