@@ -26,7 +26,8 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 BAD_ARGUMENT = 100000
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_float)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _IP = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "arcnerf_fused_mlp_fwd": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "arcnerf_fused_mlp_bwd": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -34,6 +35,10 @@ _SIGNATURES = {
     "arcnerf_hash_encode_bwd": [_P, _LL, _P, _I, _I, _I, _P, _F, _F, _I, _P, _P],
     "arcnerf_segment_march_fwd": [_P, _P, _P, _P, _P, _I, _LL, _I, _P, _I, _P, _P, _P, _P, _P],
     "arcnerf_segment_march_bwd": [_P, _P, _P, _P, _P, _I, _LL, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "arcnerf_row_gather": [_P, _LL, _I, _P, _LL, _P, _P],
+    "arcnerf_lane_gather": [_P, _LL, _LL, _P, _LL, _LL, _P, _P],
+    "arcnerf_scatter_add_rows": [_P, _LL, _I, _P, _P, _LL, _P],
+    "arcnerf_build_update_rows": [_P, _P, _LL, _IP, _I, _I, _P, _P],
 }
 
 _lib = None

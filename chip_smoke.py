@@ -1,19 +1,24 @@
-"""Smoke run of the arcnerf_torch serving and training paths on one NVIDIA GPU.
+"""Smoke run of the arcnerf_torch serving and training paths, and of the
+gather/scatter tools, on one NVIDIA GPU.
 
 Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
 
 1. Requires CUDA; prints the card (nvidia-smi name and power limit), torch
    and CUDA versions.
-2. Builds the CUDA kernels A-F from arcnerf_torch/csrc.
+2. Builds the CUDA kernels A-J from arcnerf_torch/csrc.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths, and times both (CUDA events).
-4. Serving: ``arcnerf_torch.evaluate`` on an 800x800 Synthetic view of the
+4. Tools: the hash-grid roofline and the gather/scatter probes
+   (``arcnerf_torch.tools``: roofline_hashgrid, probe_gather, probe_scatter,
+   probe_cons_forms) print their tables; checks that kernels A, B and G-J
+   launched in that run.
+5. Serving: ``arcnerf_torch.evaluate`` on an 800x800 Synthetic view of the
    NGP recipe (configs/expr/synthetic_ngp.yaml, full width, random weights
    from a seeded torch.Generator saved as a port checkpoint, occupancy of
    the scene's spheres at n_grid 128, per-ray cap 16). Checks the image,
    that kernels A-C launched in that run, and a 4096-ray crop against the
    plain path on the CPU; then times 3 renders.
-5. Training: ``arcnerf_torch.train`` runs the full-width recipe for 400
+6. Training: ``arcnerf_torch.train`` runs the full-width recipe for 400
    steps (24 Synthetic views at 128x128, dynamic batch up to 32768 rays,
    occupancy updates every 16 steps with warmup below 256). Checks that the
    loss is finite and falls, that the bitfield changed, that kernels A-F
@@ -23,8 +28,9 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    memory, then times 100 more steps (CUDA events: ms/step, rays/s). With
    --profile, also profiles 4 more steps (torch.profiler) and prints the
    device-time split and idle share.
-6. Prints the kernel table as JSON, the card line, and as the last line
-   {"ok": true, "device": {...}}.
+7. Prints the kernel table as JSON (A-F's launches from the training run,
+   G-J's from the tools; G-J's times at the probes' largest shape), the
+   card line, and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Outputs go to chiprun_out/chip_smoke/;
 the training run's checkpoints go to experiments/ and are deleted.
@@ -53,6 +59,9 @@ C_RAYS, C_STREAM, C_TOL = 16384, 1 << 18, 1e-4  # sequential vs cumprod/sum orde
 # D, E, F: sums over many rows/samples in another order (atomics, cumprod),
 # so the tolerance is relative to the largest value of each output
 D_TOL, E_TOL, F_TOL = 1e-4, 1e-4, 1e-4
+# G, H and J copy values or place one term per lane: bit-identical to plain.
+# I: f32 atomics add in another order, relative to the largest value
+I_TOL = 1e-5
 RGB_MAX, RGB_MEAN, DEPTH_MAX = 2e-2, 1e-3, 5e-2
 TRAIN_STEPS, STEADY_STEPS, PSNR_FLOOR = 400, 100, 20.0
 # one training step on the card vs the plain path on the CPU (same batch,
@@ -243,6 +252,123 @@ def compare_segment_march_bwd(dev, gen):
     return [row], {"max_abs_err": err, "ms": ms, "plain_ms": plain}
 
 
+def hold(key, label, run, plain, tol):
+    """One kernel case against its plain version: bit-identical when ``tol``
+    is 0, else within ``tol`` x max|plain|; timed both ways. Returns the
+    printed row and the case's numbers."""
+    out, ref = run(), plain()
+    if tol == 0:
+        if not torch.equal(out, ref):
+            raise AssertionError("{} {}: not bit-identical to plain (max abs err {})".format(
+                key, label, max_err(out.float(), ref.float())))
+        err = 0.0
+    else:
+        err = check_scaled("{} {}".format(key, label), out, ref, tol)
+    del out, ref
+    ms, plain_ms = time_ms(run), time_ms(plain)
+    row = "{} {}: max abs err {:.3e} ({}), kernel {:.4f} ms, plain {:.4f} ms".format(
+        key, label, err, "bit-identical" if tol == 0 else "tol {} x max|ref|".format(tol), ms, plain_ms)
+    return row, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def hold_all(key, cases, tol):
+    """``hold`` over (label, run, plain) cases; the entry carries the worst
+    error and the last (largest) case's times."""
+    rows, worst, entry = [], 0.0, None
+    for label, run, plain in cases:
+        row, entry = hold(key, label, run, plain, tol)
+        rows.append(row)
+        worst = max(worst, entry["max_abs_err"])
+    entry["max_abs_err"] = worst
+    return rows, entry
+
+
+def _index(gen, dev, high, shape):
+    return torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int32)
+
+
+def compare_row_gather(dev, gen):
+    from arcnerf_torch.ops.gather_scatter import row_gather, row_gather_reference
+
+    cases = []
+    for label, n_table, n_rows, dtype in (("vmem_gather (2^14, 128) bf16, 2^15 rows", 1 << 14, 1 << 15, torch.bfloat16),
+                                          ("case_a/taa0 (2048, 128) f32, 1024 rows", 2048, 1024, torch.float32),
+                                          ("case_onehot (2048, 128) bf16, 1024 rows", 2048, 1024, torch.bfloat16),
+                                          ("case_e (1024, 128) f32, 1024 rows", 1024, 1024, torch.float32),
+                                          ("loop_gather (2^19, 128) f32, 2^21 rows", 1 << 19, 1 << 21, torch.float32)):
+        table = torch.randn((n_table, 128), generator=gen, device=dev).to(dtype)
+        idx = _index(gen, dev, n_table, (n_rows,))
+        cases.append((label, lambda t=table, i=idx: row_gather(t, i),
+                      lambda t=table, i=idx: row_gather_reference(t, i)))
+    return hold_all("G row_gather", cases, 0)
+
+
+def compare_lane_gather(dev, gen):
+    from arcnerf_torch.ops.gather_scatter import lane_gather, lane_gather_reference
+
+    cases = []
+    for label, m, width, idx_rows, n in (("case_take_1d (1, 2048), 1024 idx", 1, 2048, 1, 1024),
+                                         ("case_taa1/b/d (8, 2048), shared 1024 idx", 8, 2048, 1, 1024),
+                                         ("case_lane_gather (8, 2048), per-row idx", 8, 2048, 8, 2048),
+                                         ("lane_gather (8, 2^19), per-row idx", 8, 1 << 19, 8, 1 << 19)):
+        src = torch.randn((m, width), generator=gen, device=dev)
+        idx = _index(gen, dev, width, (idx_rows, n))
+        cases.append((label, lambda s=src, i=idx: lane_gather(s, i), lambda s=src, i=idx: lane_gather_reference(s, i)))
+    return hold_all("H lane_gather", cases, 0)
+
+
+def compare_scatter_add_rows(dev, gen):
+    from arcnerf_torch.ops.gather_scatter import scatter_add_rows, scatter_add_rows_reference
+
+    cases = []
+    for label, n_table, width, n in (("case_scatter_ref 1024 rows -> (2048, 128)", 2048, 128, 1024),
+                                     ("probe_scatter d 2^21 rows -> (8192, 128)", 8192, 128, 1 << 21),
+                                     ("cons_forms tail 2^20 rows -> (16384, 128)", 16384, 128, 1 << 20),
+                                     ("probe_scatter f 2^18 -> 64^3 entries, W=1", 64 ** 3, 1, 1 << 18),
+                                     ("kernel E's scale 2^25 -> 2^23 entries, W=1", 1 << 23, 1, 1 << 25)):
+        idx = _index(gen, dev, n_table, (n,))
+        g = torch.randn((n, width), generator=gen, device=dev)
+
+        def zeros(rows=n_table, w=width):
+            return torch.zeros((rows, w), device=dev)
+
+        cases.append((label, lambda i=idx, g=g, z=zeros: scatter_add_rows(z(), i, g),
+                      lambda i=idx, g=g, z=zeros: scatter_add_rows_reference(z(), i, g)))
+    return hold_all("I scatter_add_rows", cases, I_TOL)
+
+
+def compare_update_rows(dev, gen):
+    from arcnerf_torch.ops.gather_scatter import build_update_rows, build_update_rows_reference
+
+    cases = []
+    for label, k, offs in (("quad K=2^19, offs (0, 2, 62, 64), F=2", 1 << 19, (0, 2, 62, 64)),
+                           ("pair K=2^20, offs (0, 2), F=2", 1 << 20, (0, 2))):
+        lane0 = _index(gen, dev, 60, (k,))
+        vals = torch.rand((k, len(offs) * 2), generator=gen, device=dev)
+        cases.append((label, lambda l=lane0, v=vals, o=offs: build_update_rows(l, v, o, 2),
+                      lambda l=lane0, v=vals, o=offs: build_update_rows_reference(l, v, o, 2)))
+    return hold_all("J build_update_rows", cases, 0)
+
+
+def run_tools():
+    """The gather/scatter tools on the card, each through its ``main``;
+    returns the launch counts of that run."""
+    from arcnerf_torch.tools import probe_cons_forms, probe_gather, probe_scatter, roofline_hashgrid
+
+    t0 = time.perf_counter()
+    reset_launches()
+    for tool in (roofline_hashgrid, probe_gather, probe_scatter, probe_cons_forms):
+        print("--- python -m {} --device cuda:0".format(tool.__name__))
+        tool.main(["--device", "cuda:0"])
+    torch.cuda.synchronize()
+    launches = read_launches("ABGHIJ")
+    print("tools: {:.1f} s, launches: {}".format(time.perf_counter() - t0, launches))
+    if min(launches.values()) <= 0:
+        raise AssertionError("a kernel of the tools never launched: {}".format(launches))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def make_checkpoint(path, argv):
     """Seeded random weights + the spheres' occupancy -> a port checkpoint."""
     from arcnerf_torch.datasets.synthetic_dataset import sphere_scene_bitfield
@@ -261,10 +387,12 @@ def make_checkpoint(path, argv):
 def kernel_counters():
     from arcnerf_torch.models.base_modules.encoding import hash_encode, hash_encode_bwd
     from arcnerf_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
+    from arcnerf_torch.ops.gather_scatter import build_update_rows, lane_gather, row_gather, scatter_add_rows
     from arcnerf_torch.render.ray_helper import segment_march, segment_march_bwd
 
     return {"A": fused_mlp, "B": hash_encode, "C": segment_march, "D": fused_mlp_bwd, "E": hash_encode_bwd,
-            "F": segment_march_bwd}
+            "F": segment_march_bwd, "G": row_gather, "H": lane_gather, "I": scatter_add_rows,
+            "J": build_update_rows}
 
 
 def reset_launches():
@@ -494,18 +622,24 @@ def main():
     # -------------------------------------------- kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stats = {}
+    t0 = time.perf_counter()
     for key, fn in (("A", compare_fused_mlp), ("B", compare_hash_encode), ("C", compare_segment_march),
-                    ("D", compare_fused_mlp_bwd), ("E", compare_hash_encode_bwd), ("F", compare_segment_march_bwd)):
+                    ("D", compare_fused_mlp_bwd), ("E", compare_hash_encode_bwd), ("F", compare_segment_march_bwd),
+                    ("G", compare_row_gather), ("H", compare_lane_gather), ("I", compare_scatter_add_rows),
+                    ("J", compare_update_rows)):
         rows, stats[key] = fn(dev, gen)
         for row in rows:
             print(row)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("kernel comparisons A-J: {:.1f} s".format(time.perf_counter() - t0))
 
     # ------------------------------------------------------- the main paths
+    tool_launches = run_tools()
     os.makedirs(OUT_DIR, exist_ok=True)
     os.makedirs(WORK_DIR, exist_ok=True)
     serve(dev)
-    launches = train(profile="--profile" in sys.argv[1:])
+    launches = dict(train(profile="--profile" in sys.argv[1:]), **{k: tool_launches[k] for k in "GHIJ"})
 
     meta = {
         "A": ("fused_mlp_fwd", "arcnerf_torch/csrc/fused_mlp.cu", "arcnerf_tpu/ops/fused_mlp.py:125"),
@@ -516,9 +650,17 @@ def main():
         "E": ("hash_encode_bwd", "arcnerf_torch/csrc/hash_encode_bwd.cu",
               "arcnerf_tpu/models/base_modules/encoding.py:69"),
         "F": ("segment_march_bwd", "arcnerf_torch/csrc/segment_march_bwd.cu", "arcnerf_tpu/render/ray_helper.py:328"),
+        "G": ("row_gather", "arcnerf_torch/csrc/row_gather.cu",
+              "tools/roofline_hashgrid.py:149; scripts/probe_pallas_gather.py:55,87,102,124; "
+              "scripts/probe_pallas_gather2.py:42,72,104,123,171"),
+        "H": ("lane_gather", "arcnerf_torch/csrc/lane_gather.cu",
+              "scripts/probe_scatter.py:115,155; scripts/probe_pallas_gather.py:40,71; "
+              "scripts/probe_pallas_gather2.py:57,88"),
+        "I": ("scatter_add_rows", "arcnerf_torch/csrc/scatter_add_rows.cu", "scripts/probe_pallas_gather.py:142"),
+        "J": ("build_update_rows", "arcnerf_torch/csrc/update_rows.cu", "scripts/probe_cons_forms.py:95"),
     }
     kernels = [dict(name=meta[k][0], route="cuda", source=meta[k][1], replaces=meta[k][2], launches=launches[k],
-                    **stats[k]) for k in "ABCDEF"]
+                    **stats[k]) for k in "ABCDEFGHIJ"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

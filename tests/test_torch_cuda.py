@@ -1,5 +1,6 @@
-"""arcnerf_torch's CUDA kernels (A-F) vs their plain PyTorch versions on the
-card, and the autograd Functions' dispatch to them.
+"""arcnerf_torch's CUDA kernels (A-J) vs their plain PyTorch versions on the
+card, the autograd Functions' dispatch to them, and the gather/scatter
+wrappers' launch counters.
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test skips where CUDA is
 unavailable. The card's machine has no JAX, so run this file without the
@@ -13,6 +14,7 @@ import torch
 
 import arcnerf_torch.models.base_modules.encoding as encoding
 import arcnerf_torch.ops.fused_mlp as fused_mlp_mod
+import arcnerf_torch.ops.gather_scatter as gs
 import arcnerf_torch.render.ray_helper as ray_helper
 from arcnerf_torch.models.base_modules.encoding import (HashGridEmbedder, hash_encode, hash_encode_bwd,
                                                        hash_encode_bwd_reference, hash_encode_reference)
@@ -176,3 +178,90 @@ def test_segment_march_kernel_matches_plain(dev, add_inf_z, white_bkg):
     ref = segment_march_reference(sigma, rgb, z, off, cnt, add_inf_z=add_inf_z, white_bkg=white_bkg)
     for key in ("rgb", "depth", "mask", "trans_end"):
         torch.testing.assert_close(out[key], ref[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_table,n_rows,width,dtype", [
+    (100, 37, 4, torch.float32), (2048, 1024, 128, torch.float32), (2048, 1024, 128, torch.bfloat16),
+    (300, 999, 8, torch.bfloat16), (1 << 14, 1 << 15, 128, torch.bfloat16), (1 << 16, 1 << 17, 128, torch.float32)])
+def test_row_gather_kernel_matches_plain(dev, n_table, n_rows, width, dtype):
+    # bit-identical: a copy
+    gen = torch.Generator(device=dev).manual_seed(8)
+    table = torch.randn((n_table, width), generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, n_table, (n_rows,), generator=gen, device=dev, dtype=torch.int32)
+    launches = gs.row_gather.launches
+    out = gs.row_gather(table, idx)
+    assert gs.row_gather.launches == launches + 1
+    assert out.dtype == dtype and torch.equal(out, gs.row_gather_reference(table, idx))
+
+
+def test_row_gather_kernel_refuses_rows_it_cannot_move(dev):
+    with pytest.raises(ValueError, match="16-byte"):
+        gs.row_gather(torch.zeros((8, 3), device=dev), torch.zeros((2,), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="int32"):
+        gs.row_gather(torch.zeros((8, 4), device=dev), torch.zeros((2,), dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("m,width,idx_rows,n", [(1, 2048, 1, 1024), (8, 2048, 1, 1024), (8, 2048, 8, 2048),
+                                                (3, 50, 3, 7), (8, 1 << 19, 8, 1 << 19)])
+def test_lane_gather_kernel_matches_plain(dev, m, width, idx_rows, n):
+    # bit-identical: a copy
+    gen = torch.Generator(device=dev).manual_seed(9)
+    src = torch.randn((m, width), generator=gen, device=dev)
+    idx = torch.randint(0, width, (idx_rows, n), generator=gen, device=dev, dtype=torch.int32)
+    launches = gs.lane_gather.launches
+    out = gs.lane_gather(src, idx)
+    assert gs.lane_gather.launches == launches + 1
+    assert torch.equal(out, gs.lane_gather_reference(src, idx))
+
+
+@pytest.mark.parametrize("n_table,width,n", [(2048, 128, 1024), (100, 4, 1000), (1000, 1, 5000), (64 ** 3, 1, 1 << 18),
+                                             (8192, 128, 1 << 21), (1 << 23, 1, 1 << 25)])
+def test_scatter_add_rows_kernel_matches_plain(dev, n_table, width, n):
+    # 1e-5 of the largest sum: f32 atomics add in another order; in place
+    gen = torch.Generator(device=dev).manual_seed(10)
+    idx = torch.randint(0, n_table, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn((n, width), generator=gen, device=dev)
+    out = torch.ones((n_table, width), device=dev)
+    launches = gs.scatter_add_rows.launches
+    assert gs.scatter_add_rows(out, idx, g) is out
+    assert gs.scatter_add_rows.launches == launches + 1
+    _scaled_close(out, gs.scatter_add_rows_reference(torch.ones((n_table, width), device=dev), idx, g), 1e-5)
+
+
+def test_scatter_add_rows_kernel_refuses_widths_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gs.scatter_add_rows(torch.zeros((8, 6), device=dev), torch.zeros((2,), dtype=torch.int32, device=dev),
+                            torch.zeros((2, 6), device=dev))
+
+
+@pytest.mark.parametrize("k,offs,n_feat", [(1000, (0, 2), 2), (4096, (0, 2, 62, 64), 2), (777, (0,), 1),
+                                           (300, (0, 5, 9), 2), (500, (0, 1), 2), (1 << 20, (0, 2), 2),
+                                           (1 << 19, (0, 2, 62, 64), 2)])
+def test_build_update_rows_kernel_matches_plain(dev, k, offs, n_feat):
+    # bit-identical: each lane sums its terms from 0 in the plain version's
+    # order, so even the overlapping terms of offsets (0, 1) agree exactly
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lane0 = torch.randint(0, 80, (k,), generator=gen, device=dev, dtype=torch.int32)
+    vals = torch.rand((k, len(offs) * n_feat), generator=gen, device=dev)
+    launches = gs.build_update_rows.launches
+    out = gs.build_update_rows(lane0, vals, offs, n_feat)
+    assert gs.build_update_rows.launches == launches + 1
+    assert torch.equal(out, gs.build_update_rows_reference(lane0, vals, offs, n_feat))
+
+
+def test_gather_scatter_wrappers_launch_the_kernels_never_the_plain_versions(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("row_gather_reference", "lane_gather_reference", "scatter_add_rows_reference",
+                 "build_update_rows_reference"):
+        monkeypatch.setattr(gs, name, refuse)
+    before = [f.launches for f in (gs.row_gather, gs.lane_gather, gs.scatter_add_rows, gs.build_update_rows)]
+    idx = torch.tensor([2, 0, 2], dtype=torch.int32, device=dev)
+    gs.row_gather(torch.randn((4, 8), device=dev), idx)
+    gs.lane_gather(torch.randn((2, 4), device=dev), idx[None])
+    gs.scatter_add_rows(torch.zeros((4, 4), device=dev), idx, torch.ones((3, 4), device=dev))
+    gs.build_update_rows(idx, torch.ones((3, 2), device=dev), (0,), 2)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (gs.row_gather, gs.lane_gather, gs.scatter_add_rows, gs.build_update_rows)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]

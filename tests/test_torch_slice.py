@@ -129,6 +129,9 @@ def test_port_imports_without_jax():
         "import arcnerf_torch.ops.cuda_lib, arcnerf_torch.ops.fused_mlp, arcnerf_torch.render.ray_helper\n"
         "import arcnerf_torch.models.base_modules.encoding, arcnerf_torch.datasets\n"
         "import arcnerf_torch.train, arcnerf_torch.trainer, arcnerf_torch.losses, arcnerf_torch.ops.trunc_exp\n"
+        "import arcnerf_torch.ops.gather_scatter, arcnerf_torch.tools.roofline_hashgrid\n"
+        "import arcnerf_torch.tools.probe_gather, arcnerf_torch.tools.probe_scatter\n"
+        "import arcnerf_torch.tools.probe_cons_forms\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'arcnerf_tpu')\n"
         "       and sys.modules[m] is not None]\n"
