@@ -56,6 +56,10 @@ def fused_mlp_bwd_reference(x, g, weights, pre):
     return g, dws
 
 
+# kernel D's limits: kMaxHidden and kMaxParts in csrc/fused_mlp_bwd.cu
+D_MAX_HIDDEN, D_MAX_PARTS = 3, 1024
+
+
 def _pads(d_in, d_out):
     return (32 if d_in <= 32 else 64), (4 if d_out <= 4 else 16)
 
@@ -94,15 +98,18 @@ def _check_chain(x, weights):
         raise ValueError("fused_mlp: kernels A and D take D_in <= 64 and D_out <= 16")
 
 
-def fused_mlp_fwd(x, weights, save_pre=False):
+def fused_mlp_fwd(x, weights, save_pre=False, packed=None):
     """Kernel A on CUDA tensors: (B, D_out) f32, plus the (n_hidden, B, 64)
-    bf16 pre-activations with ``save_pre``. Raises on what it does not take."""
+    bf16 pre-activations with ``save_pre``. ``packed`` is the chain's
+    ``pack_weights`` buffer, made here when not given. Raises on what it does
+    not take."""
     cuda_lib.require_cuda("fused_mlp", x)
     _check_chain(x, weights)
     n_rows, d_in = x.shape
     d_out = weights[-1].shape[1]
     din_pad, dout_pad = _pads(d_in, d_out)
-    packed = pack_weights(weights, din_pad, dout_pad, x.device)
+    if packed is None:
+        packed = pack_weights(weights, din_pad, dout_pad, x.device)
     out = torch.empty((n_rows, d_out), dtype=torch.float32, device=x.device)
     pre = None
     if save_pre:
@@ -116,28 +123,36 @@ def fused_mlp_fwd(x, weights, save_pre=False):
     return (out, pre) if save_pre else out
 
 
-def fused_mlp_bwd(x, g, weights, pre):
+def fused_mlp_bwd(x, g, weights, pre, packed=None):
     """Backward of a ReLU chain from the saved pre-activations -> (dX, [dW]).
     A CPU tensor takes ``fused_mlp_bwd_reference``; a CUDA tensor launches
-    kernel D or raises."""
+    kernel D (at most ``D_MAX_HIDDEN`` hidden layers) or raises. ``packed``
+    is kernel A's buffer of the same weights, made here when not given."""
     if x.device.type == "cpu":
         return fused_mlp_bwd_reference(x, g, weights, pre)
     cuda_lib.require_cuda("fused_mlp_bwd", x, g)
     cuda_lib.require_cuda("fused_mlp_bwd", pre, dtype=torch.bfloat16)
     _check_chain(x, weights)
+    if len(weights) - 1 > D_MAX_HIDDEN:
+        raise ValueError("fused_mlp_bwd: kernel D takes at most {} hidden layers".format(D_MAX_HIDDEN))
     n_rows, d_in = x.shape
     d_out = weights[-1].shape[1]
     din_pad, dout_pad = _pads(d_in, d_out)
-    packed = pack_weights(weights, din_pad, dout_pad, x.device)
+    if packed is None:
+        packed = pack_weights(weights, din_pad, dout_pad, x.device)
     dx = torch.empty((n_rows, d_in), dtype=torch.float32, device=x.device)
-    dw = torch.zeros(packed.shape, dtype=torch.float32, device=x.device)
+    # one row of partial sums per CTA, each written whole; row 0 ends as dW
+    parts = torch.empty((max(1, min(-(-n_rows // 64), D_MAX_PARTS)), packed.numel()), dtype=torch.float32,
+                        device=x.device)
     if n_rows > 0:
         status = cuda_lib.lib().arcnerf_fused_mlp_bwd(
             x.data_ptr(), g.data_ptr(), n_rows, d_in, din_pad, packed.data_ptr(), 64, len(weights) - 1, d_out,
-            dout_pad, pre.data_ptr(), dx.data_ptr(), dw.data_ptr(), cuda_lib.stream_handle(x.device))
+            dout_pad, pre.data_ptr(), dx.data_ptr(), parts.data_ptr(), cuda_lib.stream_handle(x.device))
         cuda_lib.check(status, "fused_mlp_bwd")
         fused_mlp_bwd.launches += 1
-    return dx, unpack_grads(dw, weights, din_pad, dout_pad)
+    else:
+        parts.zero_()
+    return dx, unpack_grads(parts[0], weights, din_pad, dout_pad)
 
 
 class _FusedMLPFunction(torch.autograd.Function):
@@ -146,17 +161,21 @@ class _FusedMLPFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, *weights):
+        packed = None
         if x.device.type == "cpu":
             out, pre = fused_mlp_reference(x, weights, save_pre=True)
         else:
-            out, pre = fused_mlp_fwd(x, weights, save_pre=True)
-        ctx.save_for_backward(x, pre, *weights)
+            # kernel D reads the buffer kernel A read: packed once per step
+            _check_chain(x, weights)
+            packed = pack_weights(weights, *_pads(x.shape[1], weights[-1].shape[1]), x.device)
+            out, pre = fused_mlp_fwd(x, weights, save_pre=True, packed=packed)
+        ctx.save_for_backward(x, pre, packed, *weights)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, pre, *weights = ctx.saved_tensors
-        dx, dws = fused_mlp_bwd(x, g.contiguous(), weights, pre)
+        x, pre, packed, *weights = ctx.saved_tensors
+        dx, dws = fused_mlp_bwd(x, g.contiguous(), weights, pre, packed=packed)
         return (dx if ctx.needs_input_grad[0] else None, *dws)
 
 

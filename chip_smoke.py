@@ -7,7 +7,12 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    and CUDA versions.
 2. Builds the CUDA kernels A-J from arcnerf_torch/csrc.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main paths, and times both (CUDA events).
+   shapes of the main paths, and times both (CUDA events), beside the
+   kernel's bound (bytes over 3.35 TB/s or operations over the peak rate,
+   whichever is larger) and, for G-I, one PyTorch call of the same function
+   (index_select, gather, index_add_). Kernel D is also run twice for
+   bit-identical results and timed beside a bf16 chain of cuBLAS calls, and
+   the HMMA instructions of its compiled code are counted (cuobjdump).
 4. Tools: the hash-grid roofline and the gather/scatter probes
    (``arcnerf_torch.tools``: roofline_hashgrid, probe_gather, probe_scatter,
    probe_cons_forms) print their tables; checks that kernels A, B and G-J
@@ -87,6 +92,33 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+# the H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 FMA peaks
+HBM_BYTES_S, BF16_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes, flops, peak):
+    """The least time of a function on the card: (ms, "bytes" or
+    "operations"), the larger of its bytes (each input read once, each output
+    written once) over the HBM rate and its operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def add_bound(entry, bounds):
+    """Sum the bounds of the cases timed in ``entry["ms"]`` into the entry
+    (bound_ms, bound_by of the largest, share = bound / kernel); returns the
+    printed suffix."""
+    entry["bound_ms"] = sum(b[0] for b in bounds)
+    entry["bound_by"] = max(bounds)[1]
+    entry["share"] = entry["bound_ms"] / entry["ms"]
+    entry.setdefault("library_ms", None)
+    return "bound {:.4f} ms by {}, share {:.1%}".format(entry["bound_ms"], entry["bound_by"], entry["share"])
+
+
+def n_unique(idx):
+    return int(torch.unique(idx).numel())
+
+
 def max_err(out, ref):
     return float((out - ref).abs().max())
 
@@ -115,11 +147,14 @@ def _chain(dims, gen, dev):
 def compare_fused_mlp(dev, gen):
     from arcnerf_torch.ops.fused_mlp import fused_mlp, fused_mlp_fwd, fused_mlp_reference
 
-    rows = []
+    rows, bounds = [], []
     total_ms = total_plain = worst = 0.0
     for label, dims in (("geo", [32, 64, 16]), ("radiance", [18, 64, 64, 3])):
         x = torch.randn((A_ROWS, dims[0]), generator=gen, device=dev)
         ws = _chain(dims, gen, dev)
+        kn = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        # x and out f32, the f32 weights; 2 flops a weight and row, bf16
+        bounds.append(bound(A_ROWS * (dims[0] + dims[-1]) * 4 + kn * 4, 2 * A_ROWS * kn, BF16_FLOP_S))
         out, ref = fused_mlp(x, ws), fused_mlp_reference(x, ws)
         check_close("fused_mlp " + label, out, ref, A_TOL, A_TOL)
         # save_pre: the same output, and the bf16 pre-activations of the plain chain
@@ -129,10 +164,13 @@ def compare_fused_mlp(dev, gen):
             raise AssertionError("fused_mlp {}: save_pre changed the output".format(label))
         check_close("fused_mlp save_pre " + label, pre.float(), pre_ref.float(), A_TOL, A_TOL)
         ms, plain = time_ms(lambda: fused_mlp(x, ws)), time_ms(lambda: fused_mlp_reference(x, ws))
-        rows.append("A fused_mlp {} {}: max abs err {:.3e} (tol {}), kernel {:.4f} ms, plain {:.4f} ms".format(
-            label, "-".join(map(str, dims)), max_err(out, ref), A_TOL, ms, plain))
+        rows.append("A fused_mlp {} {}: max abs err {:.3e} (tol {}), kernel {:.4f} ms, plain {:.4f} ms, "
+                    "bound {:.4f} ms by {}".format(label, "-".join(map(str, dims)), max_err(out, ref), A_TOL, ms,
+                                                   plain, *bounds[-1]))
         total_ms, total_plain, worst = total_ms + ms, total_plain + plain, max(worst, max_err(out, ref))
-    return rows, {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+    entry = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+    rows.append("A geo + radiance: kernel {:.4f} ms, {}".format(total_ms, add_bound(entry, bounds)))
+    return rows, entry
 
 
 def compare_hash_encode(dev, gen):
@@ -143,6 +181,10 @@ def compare_hash_encode(dev, gen):
     table = (torch.rand((16, 1 << 19, 2), generator=gen, device=dev) * 2 - 1).contiguous()
     xyz = torch.rand((B_POINTS, 3), generator=gen, device=dev) * 2 - 1
     rows, entry = [], None
+    # xyz in, (N, 32) f32 out, the f32 table entries the corners can reach
+    # (at most (res + 1)^3, T or 8 N a level); 2 flops a corner and feature
+    touched = sum(min(1 << 19, (r + 1) ** 3, 8 * B_POINTS) for r in enc.resolutions)
+    b_bound = bound(B_POINTS * (12 + 32 * 4) + touched * 2 * 4, B_POINTS * 16 * 8 * 2 * 2, F32_FLOP_S)
     for variant in ("quad", "ngp"):
         args = (xyz, table, enc.resolutions, enc.aabb_min, enc.aabb_len, variant, True)
         out, ref = hash_encode(*args), hash_encode_reference(*args)
@@ -152,6 +194,7 @@ def compare_hash_encode(dev, gen):
                     "plain {:.4f} ms".format(variant, max_err(out, ref), B_TOL, ms, plain))
         if variant == enc.variant:
             entry = {"max_abs_err": max_err(out, ref), "ms": ms, "plain_ms": plain}
+            rows[-1] += ", " + add_bound(entry, [b_bound])
     return rows, entry
 
 
@@ -168,16 +211,38 @@ def compare_segment_march(dev, gen):
         err = max(err, max_err(out[k], ref[k]))
     ms = time_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg))
     plain = time_ms(lambda: segment_march_reference(sigma, rgb, z, off, cnt, bkg=bkg))
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+    # the valid samples' sigma, rgb, z; per ray off, cnt (int64), bkg in and
+    # rgb, depth, mask, trans_end out; ~10 f32 flops a sample
+    n_valid = int(cnt.sum())
+    suffix = add_bound(entry, [bound(n_valid * 20 + C_RAYS * (16 + 12 + 24), n_valid * 10, F32_FLOP_S)])
     row = "C segment_march (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms, " \
-          "plain {:.4f} ms".format(err, C_TOL, ms, plain)
-    return [row], {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+          "plain {:.4f} ms, {}".format(err, C_TOL, ms, plain, suffix)
+    return [row], entry
+
+
+def cublas_chain_bwd(x, g, wb, pre):
+    """The same backward as a chain of bf16 torch.matmul calls (cuBLAS) and
+    elementwise masks, g in bf16 throughout: a yardstick the port never
+    calls (it misses D_TOL, since dW takes g in bf16)."""
+    n = len(wb)
+    posts = [x.to(torch.bfloat16)] + [torch.relu(pre[i]) for i in range(n - 1)]
+    gb, dws = g.to(torch.bfloat16), [None] * n
+    for i in reversed(range(n)):
+        if i < n - 1:
+            gb = gb * (pre[i] > 0)
+        dws[i] = posts[i].T @ gb
+        gb = gb @ wb[i].T
+    return gb, dws
 
 
 def compare_fused_mlp_bwd(dev, gen):
-    from arcnerf_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_bwd_reference, fused_mlp_fwd
+    from arcnerf_torch.ops import cuda_lib
+    from arcnerf_torch.ops.fused_mlp import (D_MAX_PARTS, _pads, fused_mlp_bwd, fused_mlp_bwd_reference, fused_mlp_fwd,
+                                             pack_weights)
 
-    rows = []
-    total_ms = total_plain = worst = 0.0
+    rows, bounds = [], []
+    total_ms = total_plain = total_chain = worst = 0.0
     for label, dims in (("geo", [32, 64, 16]), ("radiance", [18, 64, 64, 3])):
         x = torch.randn((A_ROWS, dims[0]), generator=gen, device=dev)
         ws = _chain(dims, gen, dev)
@@ -188,12 +253,61 @@ def compare_fused_mlp_bwd(dev, gen):
         err = check_scaled("fused_mlp_bwd dX " + label, dx, dx_ref, D_TOL)
         for i, (a, b) in enumerate(zip(dws, dws_ref)):
             err = max(err, check_scaled("fused_mlp_bwd dW{} {}".format(i, label), a, b, D_TOL))
-        ms = time_ms(lambda: fused_mlp_bwd(x, g, ws, pre))
+        dx2, dws2 = fused_mlp_bwd(x, g, ws, pre)
+        if not (torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))):
+            raise AssertionError("fused_mlp_bwd {}: two calls on the same inputs differ".format(label))
+        del dx, dws, dx_ref, dws_ref, dx2, dws2
+        kn = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        # x, g, the bf16 pre-activations and the f32 weights in, dX and dW
+        # out; 2 flops a weight and row for dW and again for dX, bf16
+        nbytes = A_ROWS * (2 * dims[0] * 4 + dims[-1] * 4 + (len(dims) - 2) * 64 * 2) + 2 * kn * 4
+        bounds.append(bound(nbytes, 4 * A_ROWS * kn, BF16_FLOP_S))
+        wb = [w.to(torch.bfloat16) for w in ws]
+        # the kernel alone: its C entry point on kernel A's packed weights and
+        # preallocated outputs, so that the wrapper's host time cannot set it
+        din_pad, dout_pad = _pads(dims[0], dims[-1])
+        packed = pack_weights(ws, din_pad, dout_pad, dev)
+        dx_out = torch.empty_like(x)
+        parts = torch.empty((D_MAX_PARTS, packed.numel()), device=dev)
+        lib, stream = cuda_lib.lib(), cuda_lib.stream_handle(dev)
+
+        def kernel():
+            cuda_lib.check(lib.arcnerf_fused_mlp_bwd(
+                x.data_ptr(), g.data_ptr(), A_ROWS, dims[0], din_pad, packed.data_ptr(), 64, len(ws) - 1, dims[-1],
+                dout_pad, pre.data_ptr(), dx_out.data_ptr(), parts.data_ptr(), stream), "fused_mlp_bwd")
+
+        ms = time_ms(kernel)
+        wrapper = time_ms(lambda: fused_mlp_bwd(x, g, ws, pre, packed=packed))
         plain = time_ms(lambda: fused_mlp_bwd_reference(x, g, ws, pre))
-        rows.append("D fused_mlp_bwd {} {}: max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} ms, "
-                    "plain {:.4f} ms".format(label, "-".join(map(str, dims)), err, D_TOL, ms, plain))
-        total_ms, total_plain, worst = total_ms + ms, total_plain + plain, max(worst, err)
-    return rows, {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+        chain = time_ms(lambda: cublas_chain_bwd(x, g, wb, pre))
+        rows.append("D fused_mlp_bwd {} {}: max abs err {:.3e} (tol {} x max|ref|, two calls bit-identical), "
+                    "kernel {:.4f} ms (through the wrapper {:.4f} ms), plain {:.4f} ms, bound {:.4f} ms by {} "
+                    "({:.1f} MB, {:.2f} GFLOP), bf16 chain of cuBLAS calls (not one call) {:.4f} ms".format(
+                        label, "-".join(map(str, dims)), err, D_TOL, ms, wrapper, plain, *bounds[-1], nbytes / 1e6,
+                        4 * A_ROWS * kn / 1e9, chain))
+        total_ms, total_plain, total_chain = total_ms + ms, total_plain + plain, total_chain + chain
+        worst = max(worst, err)
+    entry = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+    rows.append("D geo + radiance: kernel {:.4f} ms, {}, bf16 cuBLAS chain {:.4f} ms".format(
+        total_ms, add_bound(entry, bounds), total_chain))
+    return rows, entry
+
+
+def count_hmma(lib_path):
+    """HMMA instructions in kernel D's compiled code (cuobjdump -sass of the
+    library), or None where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    count, in_d = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            in_d = "fused_mlp_bwd_kernel" in line
+        elif in_d and "HMMA" in line:
+            count += 1
+    return count
 
 
 def compare_hash_encode_bwd(dev, gen):
@@ -205,6 +319,8 @@ def compare_hash_encode_bwd(dev, gen):
     xyz = torch.rand((B_POINTS, 3), generator=gen, device=dev) * 2 - 1
     g = torch.randn((B_POINTS, 32), generator=gen, device=dev)
     shape = (16, 1 << 19, 2)
+    # xyz and g in, the whole f32 table gradient out; 2 flops a corner and feature
+    e_bound = bound(B_POINTS * (12 + 32 * 4) + 16 * (1 << 19) * 2 * 4, B_POINTS * 16 * 8 * 2 * 2, F32_FLOP_S)
     rows, entry = [], None
     for variant in ("quad", "ngp"):
         args = (xyz, g, shape, enc.resolutions, enc.aabb_min, enc.aabb_len, variant)
@@ -215,6 +331,7 @@ def compare_hash_encode_bwd(dev, gen):
                     "kernel {:.4f} ms, plain {:.4f} ms".format(variant, err, E_TOL, ms, plain))
         if variant == enc.variant:
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+            rows[-1] += ", " + add_bound(entry, [e_bound])
     return rows, entry
 
 
@@ -247,15 +364,22 @@ def compare_segment_march_bwd(dev, gen):
     err = max(check_scaled("segment_march_bwd d_sigma", d_sigma, r_sigma, F_TOL),
               check_scaled("segment_march_bwd d_rgb", d_rgb, r_rgb, F_TOL))
     ms, plain = time_ms(lambda: segment_march_bwd(*args)), time_ms(lambda: segment_march_bwd_reference(*args), 3)
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+    # the valid samples' sigma, rgb, z and the per-ray gradients, bkg, off,
+    # cnt in; d_sigma and d_rgb over the whole stream out; ~20 flops a sample
+    n_valid = int(cnt.sum())
+    suffix = add_bound(entry, [bound(n_valid * 20 + C_RAYS * 48 + C_STREAM * 16, n_valid * 20, F32_FLOP_S)])
     row = "F segment_march_bwd (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} ms, " \
-          "plain {:.4f} ms".format(err, F_TOL, ms, plain)
-    return [row], {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+          "plain {:.4f} ms, {}".format(err, F_TOL, ms, plain, suffix)
+    return [row], entry
 
 
-def hold(key, label, run, plain, tol):
+def hold(key, label, run, plain, tol, cost, library=None):
     """One kernel case against its plain version: bit-identical when ``tol``
-    is 0, else within ``tol`` x max|plain|; timed both ways. Returns the
-    printed row and the case's numbers."""
+    is 0, else within ``tol`` x max|plain|; timed both ways, and ``library``
+    (one PyTorch call of the same function) where given. ``cost`` is
+    (bytes, flops, peak) for the bound. Returns the printed row and the
+    case's numbers."""
     out, ref = run(), plain()
     if tol == 0:
         if not torch.equal(out, ref):
@@ -265,18 +389,21 @@ def hold(key, label, run, plain, tol):
     else:
         err = check_scaled("{} {}".format(key, label), out, ref, tol)
     del out, ref
-    ms, plain_ms = time_ms(run), time_ms(plain)
-    row = "{} {}: max abs err {:.3e} ({}), kernel {:.4f} ms, plain {:.4f} ms".format(
-        key, label, err, "bit-identical" if tol == 0 else "tol {} x max|ref|".format(tol), ms, plain_ms)
-    return row, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    entry = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain),
+             "library_ms": time_ms(library) if library is not None else None}
+    suffix = add_bound(entry, [bound(*cost)])
+    row = "{} {}: max abs err {:.3e} ({}), kernel {:.4f} ms, plain {:.4f} ms, {}{}".format(
+        key, label, err, "bit-identical" if tol == 0 else "tol {} x max|ref|".format(tol), entry["ms"],
+        entry["plain_ms"], suffix, "" if library is None else ", library {:.4f} ms".format(entry["library_ms"]))
+    return row, entry
 
 
 def hold_all(key, cases, tol):
-    """``hold`` over (label, run, plain) cases; the entry carries the worst
-    error and the last (largest) case's times."""
+    """``hold`` over (label, run, plain, cost, library) cases; the entry
+    carries the worst error and the last (largest) case's numbers."""
     rows, worst, entry = [], 0.0, None
-    for label, run, plain in cases:
-        row, entry = hold(key, label, run, plain, tol)
+    for case in cases:
+        row, entry = hold(key, *case[:3], tol, *case[3:])
         rows.append(row)
         worst = max(worst, entry["max_abs_err"])
     entry["max_abs_err"] = worst
@@ -298,8 +425,11 @@ def compare_row_gather(dev, gen):
                                           ("loop_gather (2^19, 128) f32, 2^21 rows", 1 << 19, 1 << 21, torch.float32)):
         table = torch.randn((n_table, 128), generator=gen, device=dev).to(dtype)
         idx = _index(gen, dev, n_table, (n_rows,))
-        cases.append((label, lambda t=table, i=idx: row_gather(t, i),
-                      lambda t=table, i=idx: row_gather_reference(t, i)))
+        row_bytes = 128 * table.element_size()
+        # the indices and the distinct rows they name in, the rows out
+        cost = (n_rows * 4 + (n_unique(idx) + n_rows) * row_bytes, 0, F32_FLOP_S)
+        cases.append((label, lambda t=table, i=idx: row_gather(t, i), lambda t=table, i=idx: row_gather_reference(t, i),
+                      cost, lambda t=table, i=idx: torch.index_select(t, 0, i)))
     return hold_all("G row_gather", cases, 0)
 
 
@@ -313,7 +443,12 @@ def compare_lane_gather(dev, gen):
                                          ("lane_gather (8, 2^19), per-row idx", 8, 1 << 19, 8, 1 << 19)):
         src = torch.randn((m, width), generator=gen, device=dev)
         idx = _index(gen, dev, width, (idx_rows, n))
-        cases.append((label, lambda s=src, i=idx: lane_gather(s, i), lambda s=src, i=idx: lane_gather_reference(s, i)))
+        # the indices and the distinct lanes they name in, (m, n) f32 out
+        touched = n_unique(idx) * m if idx_rows == 1 else sum(n_unique(r) for r in idx)
+        cost = (idx.numel() * 4 + (touched + m * n) * 4, 0, F32_FLOP_S)
+        idx64 = idx.long().expand(m, -1).contiguous()
+        cases.append((label, lambda s=src, i=idx: lane_gather(s, i), lambda s=src, i=idx: lane_gather_reference(s, i),
+                      cost, lambda s=src, i=idx64: torch.gather(s, 1, i)))
     return hold_all("H lane_gather", cases, 0)
 
 
@@ -332,21 +467,26 @@ def compare_scatter_add_rows(dev, gen):
         def zeros(rows=n_table, w=width):
             return torch.zeros((rows, w), device=dev)
 
+        # the indices and rows in, the zeroed table out; 1 f32 add a value
+        cost = (n * 4 + n * width * 4 + n_table * width * 4, n * width, F32_FLOP_S)
         cases.append((label, lambda i=idx, g=g, z=zeros: scatter_add_rows(z(), i, g),
-                      lambda i=idx, g=g, z=zeros: scatter_add_rows_reference(z(), i, g)))
+                      lambda i=idx, g=g, z=zeros: scatter_add_rows_reference(z(), i, g), cost,
+                      lambda i=idx, g=g, z=zeros: z().index_add_(0, i, g)))
     return hold_all("I scatter_add_rows", cases, I_TOL)
 
 
 def compare_update_rows(dev, gen):
-    from arcnerf_torch.ops.gather_scatter import build_update_rows, build_update_rows_reference
+    from arcnerf_torch.ops.gather_scatter import LANES, build_update_rows, build_update_rows_reference
 
     cases = []
     for label, k, offs in (("quad K=2^19, offs (0, 2, 62, 64), F=2", 1 << 19, (0, 2, 62, 64)),
                            ("pair K=2^20, offs (0, 2), F=2", 1 << 20, (0, 2))):
         lane0 = _index(gen, dev, 60, (k,))
         vals = torch.rand((k, len(offs) * 2), generator=gen, device=dev)
+        # lane0 and the values in, (K, 128) f32 rows out
+        cost = (k * 4 + vals.numel() * 4 + k * LANES * 4, vals.numel(), F32_FLOP_S)
         cases.append((label, lambda l=lane0, v=vals, o=offs: build_update_rows(l, v, o, 2),
-                      lambda l=lane0, v=vals, o=offs: build_update_rows_reference(l, v, o, 2)))
+                      lambda l=lane0, v=vals, o=offs: build_update_rows_reference(l, v, o, 2), cost))
     return hold_all("J build_update_rows", cases, 0)
 
 
@@ -489,7 +629,7 @@ def train(profile=False):
     wall = time.perf_counter() - t0
     launches = read_launches("ABCDEF")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print("training path launches:", launches)
+    print("training path launches:", launches, "per step:", {k: v / TRAIN_STEPS for k, v in launches.items()})
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel of the training path never launched: {}".format(launches))
 
@@ -618,6 +758,13 @@ def main():
     nvcc_s = cuda_lib.build(verbose=True)
     cuda_lib.lib()
     print("build: nvcc {:.1f} s, build+load {:.1f} s".format(nvcc_s, time.perf_counter() - t0))
+    hmma = count_hmma(cuda_lib.library_path())
+    if hmma is None:
+        print("D sass: cuobjdump not found, HMMA instructions not counted")
+    else:
+        print("D sass: {} HMMA instructions in fused_mlp_bwd_kernel (cuobjdump -sass)".format(hmma))
+        if hmma <= 0:
+            raise AssertionError("kernel D: no tensor-core (HMMA) instruction in its compiled code")
 
     # -------------------------------------------- kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)

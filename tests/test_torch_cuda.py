@@ -83,6 +83,80 @@ def test_fused_mlp_save_pre_and_backward_kernel_match_plain(dev, dims):
         _scaled_close(a, b, 1e-4)
 
 
+def _bwd_inputs(dev, dims, n_rows, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n_rows, dims[0]), generator=gen, device=dev)
+    ws = [torch.randn((dims[i], dims[i + 1]), generator=gen, device=dev) / dims[i] ** 0.5
+          for i in range(len(dims) - 1)]
+    g = torch.randn((n_rows, dims[-1]), generator=gen, device=dev)
+    _, pre = fused_mlp_fwd(x, ws, save_pre=True)
+    return x, ws, g, pre
+
+
+@pytest.mark.parametrize("dims", [[18, 64, 64, 3], [32, 64, 16], [40, 64, 64, 64, 16], [64, 64, 1]])
+@pytest.mark.parametrize("n_rows", [1, 15, 64, 3000, (1 << 18) + 7])
+def test_fused_mlp_bwd_kernel_matches_plain_at_ragged_rows(dev, dims, n_rows):
+    # kernel D against the plain backward on kernel A's saved
+    # pre-activations: 1e-4 of the largest value (dW sums its rows on tensor
+    # cores in another order, with g split into two bf16 halves)
+    x, ws, g, pre = _bwd_inputs(dev, dims, n_rows, 12)
+    launches = fused_mlp_bwd.launches
+    dx, dws = fused_mlp_bwd(x, g, ws, pre)
+    assert fused_mlp_bwd.launches == launches + 1
+    dx_ref, dws_ref = fused_mlp_bwd_reference(x, g, ws, pre)
+    assert dx.shape == dx_ref.shape
+    _scaled_close(dx, dx_ref, 1e-4)
+    for a, b in zip(dws, dws_ref):
+        assert a.shape == b.shape
+        _scaled_close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("dims", [[18, 64, 64, 3], [32, 64, 16]])
+def test_fused_mlp_bwd_kernel_is_deterministic(dev, dims):
+    # 2^18 + 7 rows spread over many CTAs, so dW takes the two-pass sum of
+    # the per-CTA partials: two calls agree bit for bit
+    x, ws, g, pre = _bwd_inputs(dev, dims, (1 << 18) + 7, 13)
+    dx, dws = fused_mlp_bwd(x, g, ws, pre)
+    dx2, dws2 = fused_mlp_bwd(x, g, ws, pre)
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(dws, dws2))
+
+
+def test_autograd_hands_kernel_d_the_forward_packed_weights(dev, monkeypatch):
+    # the forward packs the weights once for kernel A; the backward hands
+    # that buffer to kernel D and never packs again
+    x, ws, g, pre = _bwd_inputs(dev, [18, 64, 64, 3], 5000, 14)
+    packs = []
+    pack = fused_mlp_mod.pack_weights
+
+    def counting(*args, **kwargs):
+        packs.append(1)
+        return pack(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the backward packed the weights again")
+
+    monkeypatch.setattr(fused_mlp_mod, "pack_weights", counting)
+    xp = x.clone().requires_grad_(True)
+    wp = [w.clone().requires_grad_(True) for w in ws]
+    out = fused_mlp(xp, wp)
+    assert len(packs) == 1
+    monkeypatch.setattr(fused_mlp_mod, "pack_weights", refuse)
+    launches = fused_mlp_bwd.launches
+    out.backward(g)
+    assert fused_mlp_bwd.launches == launches + 1
+    dx_ref, dws_ref = fused_mlp_bwd_reference(x, g, ws, pre)
+    _scaled_close(xp.grad, dx_ref, 1e-4)
+    for w, b in zip(wp, dws_ref):
+        _scaled_close(w.grad, b, 1e-4)
+
+
+def test_fused_mlp_bwd_kernel_refuses_chains_it_does_not_take(dev):
+    x, ws, g, pre = _bwd_inputs(dev, [32, 64, 64, 64, 64, 16], 100, 15)
+    with pytest.raises(ValueError, match="hidden layers"):
+        fused_mlp_bwd(x, g, ws, pre)
+
+
 @pytest.mark.parametrize("variant", ["quad", "pair", "ngp"])
 def test_hash_encode_bwd_kernel_matches_plain(dev, variant):
     # 1e-4 of the largest entry: f32 atomics add in another order
