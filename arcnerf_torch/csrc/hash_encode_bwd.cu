@@ -9,57 +9,176 @@
 // in f32 (the TPU's bf16 one-hot-matmul rounding is not copied). The xyz
 // gradient is not computed: sample points carry no parameters.
 //
-// What bounds it on the H100: 8 f32 atomic adds per (point, level) and
-// feature into a 64 MB table, so L2 atomic throughput - and, on the coarse
-// dense levels, collisions: level 0 has 16^3 = 4096 entries for ~2M corner
-// adds per step at 2^18 points, so its atomics serialise on a few cache
-// lines. Design: one thread per (point, level), level fastest as in kernel
-// B, recomputing the corners with the same hash_grid::corners so that the
-// scatter hits exactly the entries the forward read; plain f32 atomicAdd.
-// A redesign of the dense levels (privatised shared-memory partial tables,
-// or a sort-and-segment-sum) is the first thing to attack when this kernel
-// shows in a profile.
+// What bounds it on the H100: the atomic adds into the table, which L2
+// performs one request at a time per address, so their number. Design:
+// - level-major: blocks over (256 consecutive points, level), level
+//   slowest, so a warp holds 32 consecutive points of one level and the
+//   card works through the levels a few at a time, one level's table (4 MB
+//   at T = 2^19, F = 2) hot in L2 rather than all sixteen;
+// - warp aggregation: per update, the lanes whose destination is the same
+//   (__match_any_sync) sum their terms by shuffles and the group's lowest
+//   lane adds the sum. On the training stream consecutive samples of a ray
+//   lie 2 sqrt(3) / 512 apart, inside one cell of the coarse levels, so
+//   their adds collapse there; on the fine levels most groups have one lane;
+// - vector atomics: for F <= 2 a destination is a slot of two entries
+//   (2s, 2s + 1) and one 8F-byte atomic (float4 for F = 2, float2 for F = 1)
+//   adds both. The z-neighbour corners (c, c + 4) of the dense levels and
+//   of the quad and pair hashes sit at entries e and e + 1, so half the
+//   time they share a slot and go as one atomic: 6 a point and level
+//   instead of 8 on average (the ngp hash's hashed levels keep 8). For
+//   F = 4 one float4 a corner, for F = 8 two;
+// - updates whose values are all exactly 0 are not issued: the compacted
+//   stream's padding rows (g = 0), and the second update of a corner pair
+//   that went as one. The table starts at +0, and the zero half of a slot
+//   that rides along adds +-0, which leaves an entry as it is.
+// Shared-memory partial tables for the dense levels 0 and 1 were measured
+// and left out: on the training stream the aggregation above leaves those
+// levels few adds, and the few long blocks that would own a partial table
+// outlast the rest of the grid (PERF.md, section 6).
+// The corners come from the same hash_grid::corners as kernel B, so the
+// scatter hits exactly the entries the forward read. Sums land in an order
+// that changes from run to run.
 
 #include "hash_grid.cuh"
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Sums v over the lanes of the warp that pass the same key; returns true on
+// the lowest lane of each group, which then holds its group's sum. Every
+// lane of the warp calls it. Tree over the group's ranks: at step d the
+// member of rank r (r a multiple of 2d) adds the partial sum of rank r + d.
+template <int N>
+__device__ __forceinline__ bool warp_group_sum(uint32_t key, float (&v)[N]) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned group = __match_any_sync(kFull, key);
+    const unsigned size = __popc(group);
+    const unsigned widest = __reduce_max_sync(kFull, size);
+    if (widest > 1) {
+        const unsigned rank = __popc(group & below);
+        unsigned next = group & ~(below | (1u << lane));  // the members above this lane
+        for (unsigned d = 1; d < widest; d <<= 1) {
+            for (unsigned i = 0; i < d / 2; ++i) next &= next - 1u;  // lowest bit: the member d ranks up
+            const int src = next ? __ffs(next) - 1 : static_cast<int>(lane);
+            const bool take = (rank & (2 * d - 1)) == 0 && rank + d < size;
+#pragma unroll
+            for (int f = 0; f < N; ++f) {
+                const float t = __shfl_sync(kFull, v[f], src);
+                if (take) v[f] += t;
+            }
+        }
+    }
+    return (group & below) == 0;
+}
+
+template <int N>
+__device__ __forceinline__ bool any_nonzero(const float (&v)[N]) {
+    bool nonzero = false;
+#pragma unroll
+    for (int f = 0; f < N; ++f) nonzero |= v[f] != 0.f;
+    return nonzero;
+}
+
+// dst[0:N] += v with one vector atomic, two for N = 8. grad comes from
+// torch.zeros, whose storage is aligned to at least 16 bytes, and a level
+// holds T >= 2 entries of F floats, so a slot (N = 2F, F <= 2) and a row
+// (N = F >= 4) start on a multiple of 4N bytes: the float2 and float4
+// atomics rely on that.
+template <int N>
+__device__ __forceinline__ void add_vector(float* dst, const float (&v)[N]) {
+    if constexpr (N == 2) {
+        atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+    } else {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q)
+            atomicAdd(reinterpret_cast<float4*>(dst) + q,
+                      make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+    }
+}
+
+// Adds t (F floats) into the half of the slot v (2F floats) that entry e
+// takes: the low half for an even entry, the high half for an odd one.
 template <int F>
-__global__ void __launch_bounds__(256) hash_encode_bwd_kernel(
+__device__ __forceinline__ void add_half(uint32_t e, const float (&t)[F], float (&v)[2 * F]) {
+    const bool odd = e & 1u;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+        v[f] += odd ? 0.f : t[f];
+        v[F + f] += odd ? t[f] : 0.f;
+    }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads) hash_encode_bwd_kernel(
         const float* __restrict__ xyz, int64_t n_pts, const float* __restrict__ g, int n_levels,
         uint32_t table_size, const int* __restrict__ res, float mn0, float mn1, float mn2, float len0,
         float len1, float len2, int variant, float* __restrict__ grad) {
-    const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (idx >= n_pts * n_levels) return;
-    const int64_t b = idx / n_levels;
-    const int l = static_cast<int>(idx - b * n_levels);
+    const int l = blockIdx.y;
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    // whole warps past the end leave; the last warp's lanes past the end
+    // stay for the warp-wide sums, on the last point with g = 0
+    if (i - (threadIdx.x & 31) >= n_pts) return;
+    const bool live = i < n_pts;
+    const int64_t b = live ? i : n_pts - 1;
 
     float gf[F];
     const float* gr = g + b * (static_cast<int64_t>(n_levels) * F) + l * F;
 #pragma unroll
-    for (int f = 0; f < F; ++f) gf[f] = gr[f];
+    for (int f = 0; f < F; ++f) gf[f] = live ? gr[f] : 0.f;
 
     uint32_t entry[8];
     float w[8];
     hash_grid::corners(xyz[3 * b + 0], xyz[3 * b + 1], xyz[3 * b + 2], res[l], mn0, mn1, mn2, len0, len1, len2,
                        table_size, variant, entry, w);
     float* tab = grad + static_cast<int64_t>(l) * table_size * F;
+    if constexpr (F <= 2) {
+        // corner p (z = 0) and its z-neighbour p + 4: one slot update for
+        // both when they share a slot, else one each (the second then adds
+        // zeros, which the group sum drops)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-        float* e = tab + static_cast<int64_t>(entry[c]) * F;
+        for (int p = 0; p < 4; ++p) {
+            const uint32_t ea = entry[p], eb = entry[p + 4];
+            const bool joint = (ea >> 1) == (eb >> 1);
+            float ta[F], tb[F], va[2 * F] = {}, vb[2 * F] = {};
 #pragma unroll
-        for (int f = 0; f < F; ++f) atomicAdd(e + f, __fmul_rn(w[c], gf[f]));
+            for (int f = 0; f < F; ++f) {
+                ta[f] = __fmul_rn(w[p], gf[f]);
+                tb[f] = __fmul_rn(w[p + 4], gf[f]);
+            }
+            add_half<F>(ea, ta, va);
+            if (joint) {
+                add_half<F>(eb, tb, va);
+            } else {
+                add_half<F>(eb, tb, vb);
+            }
+            if (warp_group_sum<2 * F>(ea >> 1, va) && any_nonzero(va))
+                add_vector(tab + static_cast<int64_t>(ea >> 1) * 2 * F, va);
+            if (warp_group_sum<2 * F>(eb >> 1, vb) && any_nonzero(vb))
+                add_vector(tab + static_cast<int64_t>(eb >> 1) * 2 * F, vb);
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            float v[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) v[f] = __fmul_rn(w[c], gf[f]);
+            if (warp_group_sum<F>(entry[c], v) && any_nonzero(v))
+                add_vector(tab + static_cast<int64_t>(entry[c]) * F, v);
+        }
     }
 }
 
 template <int F>
 int launch(const float* xyz, int64_t n_pts, const float* g, int n_levels, uint32_t table_size, const int* res,
            const float* mn, const float* len, int variant, float* grad, cudaStream_t stream) {
-    const int threads = 256;
-    const int64_t total = n_pts * n_levels;
-    const int64_t blocks = (total + threads - 1) / threads;
-    hash_encode_bwd_kernel<F><<<static_cast<unsigned int>(blocks), threads, 0, stream>>>(
-        xyz, n_pts, g, n_levels, table_size, res, mn[0], mn[1], mn[2], len[0], len[1], len[2], variant, grad);
+    const int64_t chunks = (n_pts + kThreads - 1) / kThreads;
+    if (chunks > 0x7fffffff || n_levels > 65535) return ARCNERF_BAD_ARGUMENT;
+    const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(n_levels));
+    hash_encode_bwd_kernel<F><<<grid, kThreads, 0, stream>>>(xyz, n_pts, g, n_levels, table_size, res, mn[0], mn[1],
+                                                             mn[2], len[0], len[1], len[2], variant, grad);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -68,7 +187,8 @@ int launch(const float* xyz, int64_t n_pts, const float* g, int n_levels, uint32
 // xyz (n_pts, 3) f32; g (n_pts, n_levels * n_feat) f32, the gradient of the
 // encoding; res (n_levels,) int32 on the device; aabb_min/aabb_len (3,) f32
 // on the host; variant 0 ngp / 1 pair / 2 quad; grad (n_levels,
-// 2^log2_table, n_feat) f32, zeroed by the caller, accumulated into.
+// 2^log2_table, n_feat) f32, zeroed by the caller (torch.zeros: 16-byte
+// aligned), accumulated into.
 extern "C" int arcnerf_hash_encode_bwd(const void* xyz, long long n_pts, const void* g, int n_levels,
                                        int log2_table, int n_feat, const void* res, const float* aabb_min,
                                        const float* aabb_len, int variant, void* grad, void* stream) {

@@ -14,7 +14,10 @@ repo and each run as ``python -m arcnerf_torch.tools.<name> [--device D]``:
   construction forms (kernel J against the XLA forms) and their scatter
   tail (kernel I).
 
-Each prints a table and returns its numbers from ``main(argv)``. The
+Beside them, ``hash_streams`` makes the point streams that kernel E (the
+hash-table scatter) is tested on: ray-ordered, one cell, padded.
+
+Each tool prints a table and returns its numbers from ``main(argv)``. The
 device defaults to ``cuda:0`` and a tool raises when CUDA is missing;
 ``--device cpu`` runs the kernels' plain versions at whatever size the
 module constants give (the tests shrink them), and its times are the host's.

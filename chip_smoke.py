@@ -9,8 +9,11 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths, and times both (CUDA events), beside the
    kernel's bound (bytes over 3.35 TB/s or operations over the peak rate,
-   whichever is larger) and, for G-I, one PyTorch call of the same function
-   (index_select, gather, index_add_). Kernel D is also run twice for
+   whichever is larger) and, for E and G-I, one PyTorch call of the same
+   function (index_add_ of E's precomputed updates, index_select, gather,
+   index_add_). Kernel E runs on uniform points here and on the training
+   stream after step 6, each also through its C entry point alone and on
+   levels 0-1 and 2-15 apart. Kernel D is also run twice for
    bit-identical results and timed beside a bf16 chain of cuBLAS calls, and
    the HMMA instructions of its compiled code are counted (cuobjdump).
 4. Tools: the hash-grid roofline and the gather/scatter probes
@@ -30,12 +33,14 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    all launched, that one batch's loss and gradients match the plain path
    on the CPU, and that the held-out view renders at >= 20 dB PSNR through
    the serving path; prints the ray bucket, valid samples per ray and peak
-   memory, then times 100 more steps (CUDA events: ms/step, rays/s). With
-   --profile, also profiles 4 more steps (torch.profiler) and prints the
-   device-time split and idle share.
+   memory, then times 100 more steps (CUDA events: ms/step, rays/s), and
+   captures the stream kernel E receives in one more step (its valid and
+   padding rows are printed). With --profile, also profiles 4 more steps
+   (torch.profiler) and prints the device-time split and idle share.
 7. Prints the kernel table as JSON (A-F's launches from the training run,
-   G-J's from the tools; G-J's times at the probes' largest shape), the
-   card line, and as the last line {"ok": true, "device": {...}}.
+   G-J's from the tools; G-J's times at the probes' largest shape; E's
+   entry also holds its numbers on the training stream), the card line,
+   and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Outputs go to chiprun_out/chip_smoke/;
 the training run's checkpoints go to experiments/ and are deleted.
@@ -310,29 +315,156 @@ def count_hmma(lib_path):
     return count
 
 
+def index_add_updates(xyz, g, shape, res, aabb_min, aabb_len, variant):
+    """Kernel E's updates of a stream, precomputed for one ``index_add_``:
+    (8 N L,) int64 rows of the (L T, F) table and their (8 N L, F) w * g."""
+    from arcnerf_torch.models.base_modules.encoding import _corners_and_weights
+
+    n_levels, table_size, n_feat = shape
+    entries, weights = _corners_and_weights(xyz, res, aabb_min, aabb_len, table_size, variant)
+    level_off = torch.arange(n_levels, device=xyz.device) * table_size
+    gl = g.reshape(xyz.shape[0], n_levels, n_feat)
+    idx = torch.cat([(e + level_off).reshape(-1) for e in entries])
+    vals = torch.cat([(gl * w[..., None]).reshape(-1, n_feat) for w in weights])
+    return idx, vals
+
+
+def e_entry_point(lib, xyz, g, shape, res, aabb_min, aabb_len, variant):
+    """Kernel E through its C entry point in ``lib`` alone: a call that adds
+    the stream into one zeroed table of its own, every call again (the same
+    atomics; no memset and none of the wrapper's host work). The call holds
+    the tensors its pointers name in ``call.tensors`` (xyz, g, res, table)."""
+    from arcnerf_torch.models.base_modules.encoding import _VARIANTS
+    from arcnerf_torch.ops import cuda_lib
+
+    n_levels, table_size, n_feat = shape
+    dev = xyz.device
+    res_dev, grad = torch.as_tensor(res, dtype=torch.int32, device=dev), torch.zeros(shape, device=dev)
+    args = (xyz.data_ptr(), xyz.shape[0], g.data_ptr(), n_levels, table_size.bit_length() - 1, n_feat,
+            res_dev.data_ptr(), cuda_lib.float3(aabb_min), cuda_lib.float3(aabb_len), _VARIANTS[variant],
+            grad.data_ptr(), cuda_lib.stream_handle(dev))
+
+    def call():
+        cuda_lib.check(lib.arcnerf_hash_encode_bwd(*args), "hash_encode_bwd")
+
+    call.tensors = (xyz, g, res_dev, grad)
+    return call
+
+
+def e_level_split(lib, xyz, g, shape, res, aabb_min, aabb_len, variant):
+    """Kernel E's entry point alone on levels 0-1 and on levels 2-(L-1) of
+    the stream, one launch each: ms of each."""
+    n_pts, (n_levels, table_size, n_feat) = xyz.shape[0], shape
+    gl = g.reshape(n_pts, n_levels, n_feat)
+    return [time_ms(e_entry_point(lib, xyz, gl[:, lo:hi].reshape(n_pts, -1).contiguous(),
+                                  (hi - lo, table_size, n_feat), res[lo:hi], aabb_min, aabb_len, variant))
+            for lo, hi in ((0, 2), (2, n_levels))]
+
+
+def hold_hash_encode_bwd(label, xyz, g, shape, res, aabb_min, aabb_len, variants, main_variant):
+    """Kernel E on one stream per variant against its plain version, timed
+    through the wrapper (which zeroes the table) and through its C entry
+    point alone; for ``main_variant`` also the bound, one ``index_add_`` of
+    the stream's precomputed updates into a zeroed table, and levels 0-1
+    and 2-(L-1) each alone. Returns rows and the entry."""
+    from arcnerf_torch.models.base_modules.encoding import hash_encode_bwd, hash_encode_bwd_reference
+    from arcnerf_torch.ops import cuda_lib
+
+    n_pts, (n_levels, table_size, n_feat) = xyz.shape[0], shape
+    rows, entry, worst = [], None, 0.0
+    for variant in variants:
+        args = (xyz, g, shape, res, aabb_min, aabb_len, variant)
+        ref = hash_encode_bwd_reference(*args)
+        err = check_scaled("hash_encode_bwd {} {}".format(label, variant), hash_encode_bwd(*args), ref, E_TOL)
+        worst = max(worst, err)
+        ms, alone = time_ms(lambda: hash_encode_bwd(*args)), time_ms(e_entry_point(cuda_lib.lib(), *args))
+        plain = time_ms(lambda: hash_encode_bwd_reference(*args))
+        rows.append("E hash_encode_bwd {} {} ({} pts, L={}, T=2^{}, F={}): max abs err {:.3e} (tol {} x max|ref|), "
+                    "kernel {:.4f} ms (its entry point alone {:.4f} ms), plain {:.4f} ms".format(
+                        label, variant, n_pts, n_levels, table_size.bit_length() - 1, n_feat, err, E_TOL, ms,
+                        alone, plain))
+        if variant != main_variant:
+            continue
+        idx, vals = index_add_updates(*args)
+
+        def library():
+            return torch.zeros((n_levels * table_size, n_feat), device=xyz.device).index_add_(0, idx, vals)
+
+        check_scaled("index_add_ of E's updates " + label, library().reshape(shape), ref, E_TOL)
+        entry = {"ms": ms, "plain_ms": plain, "library_ms": time_ms(library), "entry_point_ms": alone}
+        del idx, vals
+        # xyz and g in, the whole f32 table gradient out; 2 flops a corner and feature
+        rows[-1] += ", " + add_bound(entry, [bound(n_pts * (12 + n_levels * n_feat * 4) + n_levels * table_size *
+                                                   n_feat * 4, n_pts * n_levels * 8 * n_feat * 2, F32_FLOP_S)])
+        rows[-1] += ", library (one index_add_ of the {} precomputed updates) {:.4f} ms".format(
+            8 * n_pts * n_levels, entry["library_ms"])
+        entry["levels_0_1_ms"], entry["levels_2_up_ms"] = e_level_split(cuda_lib.lib(), *args)
+        rows.append("E {} {}: entry point alone on levels 0-1 {:.4f} ms, on levels 2-{} {:.4f} ms".format(
+            label, variant, entry["levels_0_1_ms"], n_levels - 1, entry["levels_2_up_ms"]))
+    entry["max_abs_err"] = worst
+    return rows, entry
+
+
 def compare_hash_encode_bwd(dev, gen):
-    from arcnerf_torch.models.base_modules.encoding import (HashGridEmbedder, hash_encode_bwd,
-                                                           hash_encode_bwd_reference)
+    """Kernel E on uniform points in the volume (the stream of the earlier
+    slices, kept for continuity); the training stream follows the training
+    run (``compare_hash_encode_bwd_stream``)."""
+    from arcnerf_torch.models.base_modules.encoding import HashGridEmbedder
 
     enc = HashGridEmbedder(n_levels=16, n_feat_per_entry=2, hashmap_size=19, side=2.0, include_input=False,
                            dtype="bfloat16")
     xyz = torch.rand((B_POINTS, 3), generator=gen, device=dev) * 2 - 1
     g = torch.randn((B_POINTS, 32), generator=gen, device=dev)
-    shape = (16, 1 << 19, 2)
-    # xyz and g in, the whole f32 table gradient out; 2 flops a corner and feature
-    e_bound = bound(B_POINTS * (12 + 32 * 4) + 16 * (1 << 19) * 2 * 4, B_POINTS * 16 * 8 * 2 * 2, F32_FLOP_S)
-    rows, entry = [], None
-    for variant in ("quad", "ngp"):
-        args = (xyz, g, shape, enc.resolutions, enc.aabb_min, enc.aabb_len, variant)
-        err = check_scaled("hash_encode_bwd " + variant, hash_encode_bwd(*args), hash_encode_bwd_reference(*args),
-                           E_TOL)
-        ms, plain = time_ms(lambda: hash_encode_bwd(*args)), time_ms(lambda: hash_encode_bwd_reference(*args))
-        rows.append("E hash_encode_bwd {} (2^18 pts, L=16, T=2^19, F=2): max abs err {:.3e} (tol {} x max|ref|), "
-                    "kernel {:.4f} ms, plain {:.4f} ms".format(variant, err, E_TOL, ms, plain))
-        if variant == enc.variant:
-            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
-            rows[-1] += ", " + add_bound(entry, [e_bound])
-    return rows, entry
+    return hold_hash_encode_bwd("uniform", xyz, g, (16, 1 << 19, 2), enc.resolutions, enc.aabb_min, enc.aabb_len,
+                                ("quad", "ngp"), enc.variant)
+
+
+def capture_hash_encode_bwd_stream(trainer):
+    """One more training step with ``encoding.hash_encode_bwd`` wrapped:
+    the stream kernel E received in it (xyz, g, table shape, res, volume,
+    variant) and the step's valid sample count."""
+    from arcnerf_torch.models.base_modules import encoding
+
+    inner, seen = encoding.hash_encode_bwd, []
+
+    def wrapper(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_dev=None):
+        seen.append(dict(xyz=xyz.clone(), g=g.clone(), shape=tuple(table_shape), res=list(res), aabb_min=aabb_min,
+                         aabb_len=aabb_len, variant=variant))
+        return inner(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_dev)
+
+    # the wrapper counts its launch on the module's hash_encode_bwd: the
+    # wrapped one, for this step
+    wrapper.launches = inner.launches
+    encoding.hash_encode_bwd = wrapper
+    try:
+        stats = trainer.train_step(trainer.step)
+    finally:
+        encoding.hash_encode_bwd, inner.launches = inner, wrapper.launches
+    if len(seen) != 1:
+        raise AssertionError("a training step called kernel E {} times, not once".format(len(seen)))
+    stream = seen[0]
+    stream["n_valid"] = int(stats["n_valid_pts"])
+    return stream
+
+
+def compare_hash_encode_bwd_stream(stream):
+    """Kernel E on the stream it received in one training step: its rows,
+    how many are valid and how many are padding (g = 0), then the
+    comparison and times of ``hold_hash_encode_bwd``."""
+    xyz, g = stream["xyz"], stream["g"]
+    n_pts = xyz.shape[0]
+    in_stream = min(stream["n_valid"], n_pts)
+    pad_zero = int((g[in_stream:] == 0).all(dim=1).sum())
+    zero_rows = int((g == 0).all(dim=1).sum())
+    head = "E training stream ({} variant): {} rows, {} valid samples in the step, {} in the stream, {} padding " \
+           "rows ({} of them g = 0), {} rows with g = 0 in all".format(
+               stream["variant"], n_pts, stream["n_valid"], in_stream, n_pts - in_stream, pad_zero, zero_rows)
+    if pad_zero != n_pts - in_stream:
+        raise AssertionError("E training stream: a padding row carries a gradient")
+    rows, entry = hold_hash_encode_bwd("training", xyz, g, stream["shape"], stream["res"], stream["aabb_min"],
+                                       stream["aabb_len"], (stream["variant"],), stream["variant"])
+    entry.update(n_pts=n_pts, n_valid=stream["n_valid"], padding_rows=n_pts - in_stream)
+    return [head] + rows, entry
 
 
 def march_stream(dev, gen, n_rays, k):
@@ -613,7 +745,8 @@ def serve(dev):
 
 def train(profile=False):
     """The training path: the full-width recipe for TRAIN_STEPS steps
-    through ``arcnerf_torch.train``; returns its launch counts."""
+    through ``arcnerf_torch.train``; returns its launch counts and the
+    stream kernel E received in one more step."""
     from arcnerf_torch import train as train_entry
 
     expr = os.path.join(WORK_DIR, "train")
@@ -632,6 +765,9 @@ def train(profile=False):
     print("training path launches:", launches, "per step:", {k: v / TRAIN_STEPS for k, v in launches.items()})
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel of the training path never launched: {}".format(launches))
+    if launches["E"] != TRAIN_STEPS:
+        raise AssertionError("kernel E launched {} times in {} steps, not once a step".format(launches["E"],
+                                                                                               TRAIN_STEPS))
 
     losses = torch.stack(trainer.loss_history).float().cpu()
     first, last = float(losses[:20].mean()), float(losses[-20:].mean())
@@ -653,10 +789,11 @@ def train(profile=False):
     if not val["psnr"] >= PSNR_FLOOR:
         raise AssertionError("training: held-out PSNR {} below {}".format(val["psnr"], PSNR_FLOOR))
     steady_steps(trainer)
+    stream = capture_hash_encode_bwd_stream(trainer)
     if profile:
         profile_steps(trainer)
     shutil.rmtree(expr)
-    return launches
+    return launches, stream
 
 
 def steady_steps(trainer, n=STEADY_STEPS):
@@ -786,7 +923,13 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     os.makedirs(WORK_DIR, exist_ok=True)
     serve(dev)
-    launches = dict(train(profile="--profile" in sys.argv[1:]), **{k: tool_launches[k] for k in "GHIJ"})
+    train_launches, e_stream = train(profile="--profile" in sys.argv[1:])
+    launches = dict(train_launches, **{k: tool_launches[k] for k in "GHIJ"})
+    rows, stats["E"]["training_stream"] = compare_hash_encode_bwd_stream(e_stream)
+    for row in rows:
+        print(row)
+    stats["E"]["max_abs_err"] = max(stats["E"]["max_abs_err"], stats["E"]["training_stream"]["max_abs_err"])
+    del e_stream
 
     meta = {
         "A": ("fused_mlp_fwd", "arcnerf_torch/csrc/fused_mlp.cu", "arcnerf_tpu/ops/fused_mlp.py:125"),

@@ -9,6 +9,7 @@ suite's conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +23,7 @@ from arcnerf_torch.ops.fused_mlp import (fused_mlp, fused_mlp_bwd, fused_mlp_bwd
                                          fused_mlp_reference)
 from arcnerf_torch.render.ray_helper import (segment_march, segment_march_bwd, segment_march_bwd_reference,
                                              segment_march_reference)
+from arcnerf_torch.tools.hash_streams import one_cell_stream, pad_stream, ray_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -165,6 +167,54 @@ def test_hash_encode_bwd_kernel_matches_plain(dev, variant):
     xyz = torch.rand((8192, 3), generator=gen, device=dev) * 2.1 - 1.05
     g = torch.randn((8192, 32), generator=gen, device=dev)
     args = (xyz, g, (16, 1 << 19, 2), enc.resolutions, enc.aabb_min, enc.aabb_len, variant)
+    _scaled_close(hash_encode_bwd(*args), hash_encode_bwd_reference(*args), 1e-4)
+
+
+E_STREAMS = ("ray", "one_cell", "padded", "single", "ragged")
+
+
+def _e_stream(kind, n_feat, dev, n_pts=8192):
+    """(xyz, g) on ``dev`` for kernel E: ray-ordered fixed-step samples, all
+    points in one level-0 cell, a compacted stream whose last quarter is
+    padding (row 0 repeated, g = 0), one point, or 1000 ray-ordered points
+    (not a multiple of 32)."""
+    n_pts = {"single": 1, "ragged": 1000}.get(kind, n_pts)
+    g = np.random.default_rng(20).normal(size=(n_pts, 16 * n_feat)).astype(np.float32)
+    xyz = one_cell_stream(n_pts, 21) if kind == "one_cell" else ray_stream(n_pts, 21)
+    if kind == "padded":
+        xyz, g = pad_stream(xyz, g, n_pts * 3 // 4)
+    return torch.from_numpy(xyz).to(dev), torch.from_numpy(g).to(dev)
+
+
+def _e_args(xyz, g, n_feat, variant, log2_table=14):
+    enc = HashGridEmbedder(n_levels=16, n_feat_per_entry=n_feat, hashmap_size=log2_table, side=2.0,
+                           include_input=False)
+    return xyz, g, (16, 1 << log2_table, n_feat), enc.resolutions, enc.aabb_min, enc.aabb_len, variant
+
+
+@pytest.mark.parametrize("kind", E_STREAMS)
+@pytest.mark.parametrize("n_feat", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["quad", "pair", "ngp"])
+def test_hash_encode_bwd_kernel_on_streams(dev, kind, n_feat, variant):
+    # 1e-4 of the largest entry: the adds into an entry in another order
+    # (warp sums, then atomics); T = 2^14 keeps levels 0-1 dense
+    args = _e_args(*_e_stream(kind, n_feat, dev), n_feat, variant)
+    launches = hash_encode_bwd.launches
+    out = hash_encode_bwd(*args)
+    assert hash_encode_bwd.launches == launches + 1
+    _scaled_close(out, hash_encode_bwd_reference(*args), 1e-4)
+
+
+@pytest.mark.parametrize("kind", ["ray", "one_cell", "padded"])
+def test_hash_encode_bwd_kernel_two_calls_agree(dev, kind):
+    # the atomics land in another order on every call: 1e-4 of the largest entry
+    args = _e_args(*_e_stream(kind, 2, dev), 2, "quad")
+    _scaled_close(hash_encode_bwd(*args), hash_encode_bwd(*args), 1e-4)
+
+
+def test_hash_encode_bwd_kernel_at_the_recipe_scale(dev):
+    # 2^18 + 5 ray-ordered points (a ragged last warp) into T = 2^19
+    args = _e_args(*_e_stream("ray", 2, dev, (1 << 18) + 5), 2, "quad", 19)
     _scaled_close(hash_encode_bwd(*args), hash_encode_bwd_reference(*args), 1e-4)
 
 
