@@ -49,7 +49,7 @@
 // The register accumulators cap the chain at kMaxHidden hidden layers (the
 // nets of configs/ have 1 or 2).
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -63,57 +63,9 @@ constexpr int kWtStride = kW + 4;   // floats per row of the transposed f32 weig
 constexpr int kMaxHidden = 3;
 constexpr int kMaxParts = 1024;     // scratch rows; fused_mlp.py sizes dW by it
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p))
-                 : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p))
-                 : "memory");
-}
-
-// d += a b for one m16n8k16 tile: a the A fragment (4 regs), b0/b1 the B fragment.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-                 "{%0,%1,%2,%3};\n"
-                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-
 __device__ __forceinline__ uint32_t relu2(uint32_t v) {
     __nv_bfloat162 h = __hmax2(*reinterpret_cast<__nv_bfloat162*>(&v), __float2bfloat162_rn(0.f));
     return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-// Wait for this thread's cp.async copies; other threads see them after a barrier.
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // A thread's share of the warp's 16 x 64 g: rows rg + 4 i (rg = lane / 8,

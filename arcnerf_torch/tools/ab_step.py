@@ -1,0 +1,80 @@
+"""Two trees of the repository compared on one card, in turns: the serving
+frame and the profiled training step of each.
+
+Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
+
+    python -m arcnerf_torch.tools.ab_step --trees <parent> . . <parent>
+
+Each tree is a checkout of the repository, for example the parent commit
+unpacked by ``git archive`` into a git-ignored directory. The distinct trees
+first build their kernel libraries, all at once. Then each listed run, in
+order and in a process of its own started at its tree's root, renders the
+800x800 serving frame (``chip_smoke.serve``) and trains the recipe
+(``chip_smoke.train(profile=True)``: 400 steps with their gates, 100 timed
+steps, a profile of 4 more). Every run profiles with this checkout's
+``chip_smoke.profile_steps``, so every tree's device time is split by kernel
+the same way. Each run's output follows a header naming it; the lines that
+carry the comparison are repeated at the end.
+"""
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+
+BUILD = "from arcnerf_torch.ops import cuda_lib; print('nvcc {:.1f} s'.format(cuda_lib.build()))"
+RUN = """
+import importlib.util, os, sys
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+spec = importlib.util.spec_from_file_location("chip_smoke_profile", {smoke!r})
+profiler = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(profiler)
+chip_smoke.profile_steps = profiler.profile_steps
+torch.backends.cuda.matmul.allow_tf32 = False
+os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
+os.makedirs(chip_smoke.WORK_DIR, exist_ok=True)
+chip_smoke.serve(torch.device("cuda:0"))
+chip_smoke.train(profile=True)
+"""
+# the lines of a run that the comparison reads
+KEYS = ("render 800x800", "train ", "one step,", "held-out view", "steady steps", "profile of",
+        "profile per step by kernel")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--trees", nargs="+", required=True, help="tree roots, in the order of the runs")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_step: CUDA is not available")
+    trees = [str(Path(t).resolve()) for t in args.trees]
+    builds = [(tree, subprocess.Popen([sys.executable, "-c", BUILD], cwd=tree, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)) for tree in dict.fromkeys(trees)]
+    for tree, proc in builds:
+        report = proc.communicate()[0]
+        print("build {}: {}".format(tree, report.strip()[-2000:]), flush=True)
+        if proc.returncode != 0:
+            raise SystemExit("ab_step: the build of {} failed".format(tree))
+    summary = []
+    for i, tree in enumerate(trees):
+        print("=== run {} of {}: {}".format(i + 1, len(trees), tree), flush=True)
+        proc = subprocess.run([sys.executable, "-c", RUN.format(smoke=str(ROOT / "chip_smoke.py"))], cwd=tree,
+                              capture_output=True, text=True)
+        print(proc.stdout, flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:])
+            raise SystemExit("ab_step: run {} ({}) failed".format(i + 1, tree))
+        summary += ["[run {} {}] {}".format(i + 1, tree, line) for line in proc.stdout.splitlines()
+                    if line.startswith(KEYS)]
+    print("=== summary")
+    print("\n".join(summary))
+
+
+if __name__ == "__main__":
+    main()

@@ -13,9 +13,13 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    function (index_add_ of E's precomputed updates, index_select, gather,
    index_add_). Kernel E runs on uniform points here and on the training
    stream after step 6, each also through its C entry point alone and on
-   levels 0-1 and 2-15 apart. Kernel D is also run twice for
-   bit-identical results and timed beside a bf16 chain of cuBLAS calls, and
-   the HMMA instructions of its compiled code are counted (cuobjdump).
+   levels 0-1 and 2-15 apart; kernel B also runs on that stream's points
+   with the trained table. Kernels A (both builds, inference and save_pre)
+   and D are also run twice for bit-identical results and timed beside a
+   bf16 chain of cuBLAS calls (A through its C entry point in a CUDA graph,
+   so that its launch time does not hide it; each build beside its own
+   bound; the share of flipped bf16 values checked), and the HMMA
+   instructions of their compiled code are counted (cuobjdump).
 4. Tools: the hash-grid roofline and the gather/scatter probes
    (``arcnerf_torch.tools``: roofline_hashgrid, probe_gather, probe_scatter,
    probe_cons_forms) print their tables; checks that kernels A, B and G-J
@@ -36,11 +40,13 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    memory, then times 100 more steps (CUDA events: ms/step, rays/s), and
    captures the stream kernel E receives in one more step (its valid and
    padding rows are printed). With --profile, also profiles 4 more steps
-   (torch.profiler) and prints the device-time split and idle share.
+   (torch.profiler) and prints the device-time split (by kernel name and
+   for each of A-F) and idle share.
 7. Prints the kernel table as JSON (A-F's launches from the training run,
-   G-J's from the tools; G-J's times at the probes' largest shape; E's
-   entry also holds its numbers on the training stream), the card line,
-   and as the last line {"ok": true, "device": {...}}.
+   G-J's from the tools; G-J's times at the probes' largest shape; A's
+   entry also holds its save_pre build, B's and E's their numbers on the
+   training stream), the card line, and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Outputs go to chiprun_out/chip_smoke/;
 the training run's checkpoints go to experiments/ and are deleted.
@@ -64,6 +70,7 @@ SEED = 0
 
 # (rows, tolerance) per kernel comparison, and the slice tolerances
 A_ROWS, A_TOL = 1 << 18, 2e-2  # bf16 flips from another summation order
+A_FLIP_BOUND = 1e-3  # the share of flipped bf16 values (tests/test_torch_mlp_fwd_numerics.py)
 B_POINTS, B_TOL = 1 << 18, 1e-5  # f32 sums in another order
 C_RAYS, C_STREAM, C_TOL = 16384, 1 << 18, 1e-4  # sequential vs cumprod/sum order, relative
 # D, E, F: sums over many rows/samples in another order (atomics, cumprod),
@@ -149,32 +156,135 @@ def _chain(dims, gen, dev):
             for i in range(len(dims) - 1)]
 
 
-def compare_fused_mlp(dev, gen):
-    from arcnerf_torch.ops.fused_mlp import fused_mlp, fused_mlp_fwd, fused_mlp_reference
+def graph_ms(fn, reps=20):
+    """Mean device ms per call over ``reps`` calls replayed from one CUDA
+    graph, after a warm-up: no host launch time between the calls, which
+    a kernel shorter than its launch would otherwise show. ``fn`` must look
+    up the current stream when called (the capture runs on its own)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up on a side stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
-    rows, bounds = [], []
-    total_ms = total_plain = worst = 0.0
+
+def a_entry_point(lib, x, dims, packed, out, pre=None):
+    """Kernel A through its C entry point alone, on the chain's packed
+    weights and preallocated outputs: the inference build, or with ``pre``
+    the save_pre build."""
+    from arcnerf_torch.ops import cuda_lib
+    from arcnerf_torch.ops.fused_mlp import _pads
+
+    din_pad, dout_pad = _pads(dims[0], dims[-1])
+
+    def call():
+        cuda_lib.check(lib.arcnerf_fused_mlp_fwd(
+            x.data_ptr(), x.shape[0], dims[0], din_pad, packed.data_ptr(), 64, len(dims) - 2, dims[-1], dout_pad,
+            out.data_ptr(), None if pre is None else pre.data_ptr(), cuda_lib.stream_handle(x.device)), "fused_mlp")
+
+    return call
+
+
+def cublas_chain_fwd(x, wb):
+    """The same forward as a chain of bf16 torch.matmul calls (cuBLAS, f32
+    accumulation, bf16 out) and ReLUs; the bf16 products before each ReLU
+    are the pre-activations, so it serves as the yardstick of both builds.
+    The port never calls it."""
+    h = x.to(torch.bfloat16)
+    for i, w in enumerate(wb):
+        h = h @ w
+        if i < len(wb) - 1:
+            h = torch.relu(h)
+    return h.float()
+
+
+def compare_fused_mlp(dev, gen):
+    """Kernel A's two builds at A_ROWS rows of both recipe chains: each
+    against the plain version (A_TOL, and the share of flipped bf16 values
+    under A_FLIP_BOUND), the save_pre output equal to the inference output,
+    two calls bit-identical; timed through the C entry point (CUDA graph),
+    through the wrapper, plain, and the bf16 cuBLAS chain, each build
+    beside its own bound."""
+    from arcnerf_torch.ops import cuda_lib
+    from arcnerf_torch.ops.fused_mlp import _pads, fused_mlp, fused_mlp_fwd, fused_mlp_reference, pack_weights
+
+    rows, bounds, bounds_pre, worst = [], [], [], 0.0
+    totals = dict.fromkeys(("ms", "plain_ms", "wrapper_ms", "save_pre_ms", "save_pre_plain_ms",
+                            "save_pre_wrapper_ms", "chain_ms"), 0.0)
+    flips = {"out": 0.0, "pre": 0.0}
+    lib = cuda_lib.lib()
     for label, dims in (("geo", [32, 64, 16]), ("radiance", [18, 64, 64, 3])):
         x = torch.randn((A_ROWS, dims[0]), generator=gen, device=dev)
         ws = _chain(dims, gen, dev)
+        n_hidden = len(dims) - 2
         kn = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
-        # x and out f32, the f32 weights; 2 flops a weight and row, bf16
-        bounds.append(bound(A_ROWS * (dims[0] + dims[-1]) * 4 + kn * 4, 2 * A_ROWS * kn, BF16_FLOP_S))
+        # x and out f32 and the f32 weights, with save_pre also the bf16
+        # pre-activations out; 2 flops a weight and row, bf16
+        io = A_ROWS * (dims[0] + dims[-1]) * 4 + kn * 4
+        bounds.append(bound(io, 2 * A_ROWS * kn, BF16_FLOP_S))
+        bounds_pre.append(bound(io + A_ROWS * n_hidden * 64 * 2, 2 * A_ROWS * kn, BF16_FLOP_S))
         out, ref = fused_mlp(x, ws), fused_mlp_reference(x, ws)
         check_close("fused_mlp " + label, out, ref, A_TOL, A_TOL)
-        # save_pre: the same output, and the bf16 pre-activations of the plain chain
         out_s, pre = fused_mlp_fwd(x, ws, save_pre=True)
         _, pre_ref = fused_mlp_reference(x, ws, save_pre=True)
-        if not torch.equal(out_s, out):
-            raise AssertionError("fused_mlp {}: save_pre changed the output".format(label))
         check_close("fused_mlp save_pre " + label, pre.float(), pre_ref.float(), A_TOL, A_TOL)
-        ms, plain = time_ms(lambda: fused_mlp(x, ws)), time_ms(lambda: fused_mlp_reference(x, ws))
-        rows.append("A fused_mlp {} {}: max abs err {:.3e} (tol {}), kernel {:.4f} ms, plain {:.4f} ms, "
-                    "bound {:.4f} ms by {}".format(label, "-".join(map(str, dims)), max_err(out, ref), A_TOL, ms,
-                                                   plain, *bounds[-1]))
-        total_ms, total_plain, worst = total_ms + ms, total_plain + plain, max(worst, max_err(out, ref))
-    entry = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
-    rows.append("A geo + radiance: kernel {:.4f} ms, {}".format(total_ms, add_bound(entry, bounds)))
+        if not torch.equal(out_s, out):
+            raise AssertionError("fused_mlp {}: the save_pre build's output differs from the inference build's"
+                                 .format(label))
+        out_s2, pre2 = fused_mlp_fwd(x, ws, save_pre=True)
+        if not (torch.equal(fused_mlp(x, ws), out) and torch.equal(out_s2, out_s) and torch.equal(pre2, pre)):
+            raise AssertionError("fused_mlp {}: two calls on the same inputs differ".format(label))
+        flip = {"out": float((out != ref).float().mean()), "pre": float((pre != pre_ref).float().mean())}
+        if max(flip.values()) > A_FLIP_BOUND:
+            raise AssertionError("fused_mlp {}: flipped bf16 shares {} above {}".format(label, flip, A_FLIP_BOUND))
+        err = max(max_err(out, ref), max_err(pre.float(), pre_ref.float()))
+        del out_s, out_s2, pre2, pre_ref
+        packed = pack_weights(ws, *_pads(dims[0], dims[-1]), dev)
+        wb = [w.to(torch.bfloat16) for w in ws]
+        case = {
+            "ms": graph_ms(a_entry_point(lib, x, dims, packed, torch.empty_like(ref))),
+            "save_pre_ms": graph_ms(a_entry_point(lib, x, dims, packed, torch.empty_like(ref), torch.empty_like(pre))),
+            "wrapper_ms": time_ms(lambda: fused_mlp(x, ws)),
+            "save_pre_wrapper_ms": time_ms(lambda: fused_mlp_fwd(x, ws, save_pre=True)),
+            "plain_ms": time_ms(lambda: fused_mlp_reference(x, ws)),
+            "save_pre_plain_ms": time_ms(lambda: fused_mlp_reference(x, ws, save_pre=True)),
+            "chain_ms": graph_ms(lambda: cublas_chain_fwd(x, wb)),
+        }
+        rows.append("A fused_mlp {} {}: max abs err {:.3e} (tol {}), flipped bf16 values out {:.2e} pre {:.2e} "
+                    "(bound {}), save_pre output = inference output, two calls bit-identical; C entry point "
+                    "(CUDA graph): inference {:.4f} ms (bound {:.4f} ms by {}), save_pre {:.4f} ms (bound {:.4f} ms "
+                    "by {}); through the wrapper {:.4f} / {:.4f} ms; plain {:.4f} / {:.4f} ms; bf16 chain of cuBLAS "
+                    "calls (not one call, CUDA graph) {:.4f} ms".format(
+                        label, "-".join(map(str, dims)), err, A_TOL, flip["out"], flip["pre"], A_FLIP_BOUND,
+                        case["ms"], *bounds[-1], case["save_pre_ms"], *bounds_pre[-1], case["wrapper_ms"],
+                        case["save_pre_wrapper_ms"], case["plain_ms"], case["save_pre_plain_ms"], case["chain_ms"]))
+        for k in totals:
+            totals[k] += case[k]
+        worst = max(worst, err)
+        for k in flips:
+            flips[k] = max(flips[k], flip[k])
+        del x, out, ref, pre, packed
+    entry = dict(totals, max_abs_err=worst, flip_share=flips)
+    suffix = add_bound(entry, bounds)
+    entry.update(save_pre_bound_ms=sum(b[0] for b in bounds_pre), save_pre_bound_by=max(bounds_pre)[1])
+    entry["save_pre_share"] = entry["save_pre_bound_ms"] / entry["save_pre_ms"]
+    rows.append("A geo + radiance: inference {:.4f} ms, {}; save_pre {:.4f} ms, bound {:.4f} ms by {}, share {:.1%}; "
+                "bf16 cuBLAS chain {:.4f} ms".format(entry["ms"], suffix, entry["save_pre_ms"],
+                                                     entry["save_pre_bound_ms"], entry["save_pre_bound_by"],
+                                                     entry["save_pre_share"], entry["chain_ms"]))
     return rows, entry
 
 
@@ -198,8 +308,11 @@ def compare_hash_encode(dev, gen):
         rows.append("B hash_encode {} (2^18 pts, L=16, T=2^19, F=2): max abs err {:.3e} (tol {}), kernel {:.4f} ms, "
                     "plain {:.4f} ms".format(variant, max_err(out, ref), B_TOL, ms, plain))
         if variant == enc.variant:
-            entry = {"max_abs_err": max_err(out, ref), "ms": ms, "plain_ms": plain}
-            rows[-1] += ", " + add_bound(entry, [b_bound])
+            # also as the step calls it, the resolutions on the card, in a CUDA graph
+            res_dev = torch.as_tensor(enc.resolutions, dtype=torch.int32, device=dev)
+            entry = {"max_abs_err": max_err(out, ref), "ms": ms, "plain_ms": plain,
+                     "graph_ms": graph_ms(lambda: hash_encode(*args, res_dev=res_dev))}
+            rows[-1] += ", CUDA graph {:.4f} ms, {}".format(entry["graph_ms"], add_bound(entry, [b_bound]))
     return rows, entry
 
 
@@ -298,21 +411,22 @@ def compare_fused_mlp_bwd(dev, gen):
     return rows, entry
 
 
-def count_hmma(lib_path):
-    """HMMA instructions in kernel D's compiled code (cuobjdump -sass of the
-    library), or None where cuobjdump is missing."""
+def count_hmma(lib_path, kernels):
+    """HMMA instructions in the compiled code of each kernel function named
+    in ``kernels`` (cuobjdump -sass of the library, all instantiations), or
+    None where cuobjdump is missing."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                      "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
-    count, in_d = 0, False
+    counts, current = dict.fromkeys(kernels, 0), None
     for line in sass.splitlines():
         if "Function :" in line:
-            in_d = "fused_mlp_bwd_kernel" in line
-        elif in_d and "HMMA" in line:
-            count += 1
-    return count
+            current = next((k for k in kernels if k in line), None)
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
 
 
 def index_add_updates(xyz, g, shape, res, aabb_min, aabb_len, variant):
@@ -422,8 +536,11 @@ def compare_hash_encode_bwd(dev, gen):
 def capture_hash_encode_bwd_stream(trainer):
     """One more training step with ``encoding.hash_encode_bwd`` wrapped:
     the stream kernel E received in it (xyz, g, table shape, res, volume,
-    variant) and the step's valid sample count."""
+    variant; kernel B encoded the same xyz), the step's valid sample count,
+    and the trained table as the step left it, with its read precision."""
     from arcnerf_torch.models.base_modules import encoding
+
+    enc = next(m for m in trainer.model.modules() if isinstance(m, encoding.HashGridEmbedder))
 
     inner, seen = encoding.hash_encode_bwd, []
 
@@ -443,8 +560,41 @@ def capture_hash_encode_bwd_stream(trainer):
     if len(seen) != 1:
         raise AssertionError("a training step called kernel E {} times, not once".format(len(seen)))
     stream = seen[0]
-    stream["n_valid"] = int(stats["n_valid_pts"])
+    stream.update(n_valid=int(stats["n_valid_pts"]), table=enc.embeddings.detach().clone(), read_bf16=enc.read_bf16)
     return stream
+
+
+def compare_hash_encode_stream(stream):
+    """Kernel B on the points one training step encodes (the xyz of kernel
+    E's stream) with the trained table, against its plain version; timed
+    as the step calls it (the levels' resolutions already on the card) in a
+    CUDA graph and through CUDA events, beside the bound of the table
+    entries those points reach."""
+    from arcnerf_torch.models.base_modules.encoding import _corners_and_weights, hash_encode, hash_encode_reference
+
+    xyz, table, variant = stream["xyz"], stream["table"], stream["variant"]
+    n_levels, table_size, n_feat = table.shape
+    args = (xyz, table, stream["res"], stream["aabb_min"], stream["aabb_len"], variant, stream["read_bf16"])
+    res_dev = torch.as_tensor(np.asarray(stream["res"]), dtype=torch.int32, device=xyz.device)
+    out, ref = hash_encode(*args, res_dev=res_dev), hash_encode_reference(*args)
+    check_close("hash_encode training " + variant, out, ref, B_TOL, 0.0)
+    entry = {"max_abs_err": max_err(out, ref), "ms": graph_ms(lambda: hash_encode(*args, res_dev=res_dev)),
+             "events_ms": time_ms(lambda: hash_encode(*args, res_dev=res_dev)),
+             "plain_ms": time_ms(lambda: hash_encode_reference(*args))}
+    del out, ref
+    entries, _ = _corners_and_weights(xyz, stream["res"], stream["aabb_min"], stream["aabb_len"], table_size, variant)
+    level_off = torch.arange(n_levels, device=xyz.device) * table_size
+    touched = n_unique(torch.cat([(e + level_off).reshape(-1) for e in entries]))
+    n_pts = xyz.shape[0]
+    # xyz in, (N, L F) f32 out, the f32 entries the corners reach; 2 flops a corner and feature
+    suffix = add_bound(entry, [bound(n_pts * (12 + n_levels * n_feat * 4) + touched * n_feat * 4,
+                                     n_pts * n_levels * 8 * n_feat * 2, F32_FLOP_S)])
+    entry["touched_entries"] = touched
+    row = "B hash_encode training stream ({} pts, {} variant, trained table, {} entries reached): max abs err {:.3e} " \
+          "(tol {}), kernel {:.4f} ms (CUDA graph; CUDA events {:.4f} ms), plain {:.4f} ms, {}".format(
+              n_pts, variant, touched, entry["max_abs_err"], B_TOL, entry["ms"], entry["events_ms"], entry["plain_ms"],
+              suffix)
+    return [row], entry
 
 
 def compare_hash_encode_bwd_stream(stream):
@@ -845,8 +995,15 @@ def check_step_against_cpu(trainer):
         raise AssertionError("training step: the card disagrees with the plain path: {}".format(rel))
 
 
+# kernels A-F as the profiler names them (D with its dW sum)
+PROFILE_KERNELS = {"A": ("fused_mlp_fwd_kernel",), "B": ("hash_encode_fwd_kernel",),
+                   "C": ("segment_march_fwd_kernel",), "D": ("fused_mlp_bwd_kernel", "reduce_parts_kernel"),
+                   "E": ("hash_encode_bwd_kernel",), "F": ("segment_march_bwd_kernel",)}
+
+
 def profile_steps(trainer, n=4):
-    """torch.profiler over n more steps: device time by kernel, busy and idle."""
+    """torch.profiler over n more steps: device time by kernel name and for
+    each of kernels A-F, busy and idle."""
     from torch.profiler import ProfilerActivity, profile
 
     epoch0 = trainer.step + 1  # off the occupancy cadence
@@ -862,9 +1019,10 @@ def profile_steps(trainer, n=4):
         print("profile: no device events recorded")
         return
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    by_name = {}
+    by_name, calls = {}, {}
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
+        calls[name] = calls.get(name, 0) + 1
         if s > cur_e:
             busy, cur_s, cur_e = busy + (cur_e - cur_s), s, e
         else:
@@ -876,6 +1034,12 @@ def profile_steps(trainer, n=4):
         n, busy / 1e3, span / 1e3, 100.0 * (1 - busy / span), len(spans)))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print("  {:8.3f} ms/step {:5.1f} %  {}".format(us / 1e3 / n, 100.0 * us / total, name[:110]))
+    split = []
+    for key, parts in PROFILE_KERNELS.items():
+        names = [name for name in by_name if any(p in name for p in parts)]
+        split.append("{} {:.3f} ms ({:.2f} launches)".format(key, sum(by_name[m] for m in names) / 1e3 / n,
+                                                             sum(calls[m] for m in names) / n))
+    print("profile per step by kernel: " + ", ".join(split))
 
 
 def main():
@@ -895,13 +1059,15 @@ def main():
     nvcc_s = cuda_lib.build(verbose=True)
     cuda_lib.lib()
     print("build: nvcc {:.1f} s, build+load {:.1f} s".format(nvcc_s, time.perf_counter() - t0))
-    hmma = count_hmma(cuda_lib.library_path())
+    mma_kernels = {"A": "fused_mlp_fwd_kernel", "D": "fused_mlp_bwd_kernel"}
+    hmma = count_hmma(cuda_lib.library_path(), mma_kernels.values())
     if hmma is None:
-        print("D sass: cuobjdump not found, HMMA instructions not counted")
+        print("A, D sass: cuobjdump not found, HMMA instructions not counted")
     else:
-        print("D sass: {} HMMA instructions in fused_mlp_bwd_kernel (cuobjdump -sass)".format(hmma))
-        if hmma <= 0:
-            raise AssertionError("kernel D: no tensor-core (HMMA) instruction in its compiled code")
+        for key, name in mma_kernels.items():
+            print("{} sass: {} HMMA instructions in {} (cuobjdump -sass)".format(key, hmma[name], name))
+            if hmma[name] <= 0:
+                raise AssertionError("kernel {}: no tensor-core (HMMA) instruction in its compiled code".format(key))
 
     # -------------------------------------------- kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -929,6 +1095,10 @@ def main():
     for row in rows:
         print(row)
     stats["E"]["max_abs_err"] = max(stats["E"]["max_abs_err"], stats["E"]["training_stream"]["max_abs_err"])
+    rows, stats["B"]["training_stream"] = compare_hash_encode_stream(e_stream)
+    for row in rows:
+        print(row)
+    stats["B"]["max_abs_err"] = max(stats["B"]["max_abs_err"], stats["B"]["training_stream"]["max_abs_err"])
     del e_stream
 
     meta = {

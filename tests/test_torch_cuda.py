@@ -56,6 +56,47 @@ def test_fused_mlp_kernel_takes_host_weights(dev):
     torch.testing.assert_close(fused_mlp(x, ws).cpu(), fused_mlp_reference(x.cpu(), ws), rtol=2e-2, atol=2e-2)
 
 
+def _chain(dims, gen, dev):
+    return [torch.randn((dims[i], dims[i + 1]), generator=gen, device=dev) / dims[i] ** 0.5
+            for i in range(len(dims) - 1)]
+
+
+@pytest.mark.parametrize("dims", [[18, 64, 64, 3], [32, 64, 16], [64, 64, 1], [40, 64, 64, 64, 16]])
+@pytest.mark.parametrize("n_rows", [1, 15, 16, 17, 1000, 3000, (1 << 18) + 7])
+def test_fused_mlp_kernel_both_builds_at_ragged_rows(dev, dims, n_rows):
+    # out and pre within rtol = atol = 2e-2 of the plain version: bf16 flips
+    # from the MMA's summation order (tests/test_torch_mlp_fwd_numerics.py).
+    # The save_pre build's output is the inference build's, and two calls
+    # of either agree bit for bit
+    gen = torch.Generator(device=dev).manual_seed(n_rows)
+    x = torch.randn((n_rows, dims[0]), generator=gen, device=dev)
+    ws = _chain(dims, gen, dev)
+    launches = fused_mlp.launches
+    out = fused_mlp_fwd(x, ws)
+    out_s, pre = fused_mlp_fwd(x, ws, save_pre=True)
+    assert fused_mlp.launches == launches + 2
+    ref, pre_ref = fused_mlp_reference(x, ws, save_pre=True)
+    assert out.shape == ref.shape and pre.shape == pre_ref.shape and pre.dtype == torch.bfloat16
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(pre.float(), pre_ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out_s, out)
+    out2, pre2 = fused_mlp_fwd(x, ws, save_pre=True)
+    assert torch.equal(out2, out) and torch.equal(pre2, pre) and torch.equal(fused_mlp_fwd(x, ws), out)
+
+
+@pytest.mark.parametrize("offset", [1, 18])
+def test_fused_mlp_kernel_reads_x_at_a_4_or_8_byte_offset(dev, offset):
+    # x a view `offset` floats into its storage: 4- or 8-byte aligned, not
+    # 16, so the kernel copies x 4 bytes at a time; rtol = atol = 2e-2 as above
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    flat = torch.randn((offset + 1000 * 18,), generator=gen, device=dev)
+    x = flat[offset:].view(1000, 18)
+    assert x.data_ptr() % 16 != 0
+    ws = _chain([18, 64, 64, 3], gen, dev)
+    torch.testing.assert_close(fused_mlp(x, ws), fused_mlp_reference(x, ws), rtol=2e-2, atol=2e-2)
+    assert torch.equal(fused_mlp(x, ws), fused_mlp(x.clone(), ws))
+
+
 def _scaled_close(out, ref, tol):
     # |out - ref| <= tol * max|ref|: sums over many rows in another order
     assert torch.isfinite(out).all()

@@ -30,7 +30,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from arcnerf_torch.ops import gather_scatter as gs
-from arcnerf_torch.tools import probe_cons_forms, probe_gather, probe_scatter, roofline_hashgrid
+from arcnerf_torch.tools import ab_step, probe_cons_forms, probe_gather, probe_scatter, roofline_hashgrid
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -288,6 +288,13 @@ def test_tool_refuses_to_run_without_cuda(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         tool.main([])
+
+
+def test_ab_step_refuses_to_run_without_cuda(monkeypatch):
+    # it builds and times trees on the card only: no process starts here
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        ab_step.main(["--trees", ".", "."])
 
 
 @pytest.mark.parametrize("name", ["row_gather", "lane_gather", "scatter_add_rows", "build_update_rows"])
