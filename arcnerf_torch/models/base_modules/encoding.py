@@ -203,17 +203,11 @@ def _kernel_args(xyz, table_shape, res, res_dev, name):
 
 def hash_encode_fwd(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
     """Kernel B on CUDA tensors -> (B, L * F) f32, or raises."""
-    cuda_lib.require_cuda("hash_encode", xyz, table)
-    n_levels, log2_t, n_feat, res_dev = _kernel_args(xyz, table.shape, res, res_dev, "hash_encode")
-    out = torch.empty((xyz.shape[0], n_levels * n_feat), dtype=torch.float32, device=xyz.device)
-    if xyz.shape[0] == 0:
-        return out
-    status = cuda_lib.lib().arcnerf_hash_encode_fwd(
-        xyz.data_ptr(), xyz.shape[0], table.data_ptr(), n_levels, log2_t, n_feat, res_dev.data_ptr(),
-        cuda_lib.float3(aabb_min), cuda_lib.float3(aabb_len), _VARIANTS[variant], int(bool(read_bf16)),
-        out.data_ptr(), cuda_lib.stream_handle(xyz.device))
-    cuda_lib.check(status, "hash_encode")
-    hash_encode.launches += 1
+    _, log2_t, _, res_dev = _kernel_args(xyz, table.shape, res, res_dev, "hash_encode")
+    out = cuda_lib.ops().hash_encode_fwd(xyz, table, res_dev, log2_t, aabb_min, aabb_len, _VARIANTS[variant],
+                                         bool(read_bf16))
+    if xyz.shape[0] > 0:
+        hash_encode.launches += 1
     return out
 
 
@@ -221,19 +215,13 @@ def hash_encode_bwd(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_d
     """Table gradient (L, T, F) f32 of the encoding for its gradient ``g``
     (B, L * F). A CPU tensor takes ``hash_encode_bwd_reference``; a CUDA
     tensor launches kernel E or raises."""
-    if xyz.device.type == "cpu":
+    if xyz.is_cpu:
         return hash_encode_bwd_reference(xyz, g, table_shape, res, aabb_min, aabb_len, variant)
-    cuda_lib.require_cuda("hash_encode_bwd", xyz, g)
     n_levels, log2_t, n_feat, res_dev = _kernel_args(xyz, table_shape, res, res_dev, "hash_encode_bwd")
-    grad = torch.zeros(tuple(table_shape), dtype=torch.float32, device=xyz.device)
-    if xyz.shape[0] == 0:
-        return grad
-    status = cuda_lib.lib().arcnerf_hash_encode_bwd(
-        xyz.data_ptr(), xyz.shape[0], g.data_ptr(), n_levels, log2_t, n_feat, res_dev.data_ptr(),
-        cuda_lib.float3(aabb_min), cuda_lib.float3(aabb_len), _VARIANTS[variant], grad.data_ptr(),
-        cuda_lib.stream_handle(xyz.device))
-    cuda_lib.check(status, "hash_encode_bwd")
-    hash_encode_bwd.launches += 1
+    grad = cuda_lib.ops().hash_encode_bwd(xyz, g, res_dev, n_levels, log2_t, n_feat, aabb_min, aabb_len,
+                                          _VARIANTS[variant])
+    if xyz.shape[0] > 0:
+        hash_encode_bwd.launches += 1
     return grad
 
 
@@ -243,7 +231,7 @@ class _HashEncodeFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev):
-        if xyz.device.type == "cpu":
+        if xyz.is_cpu:
             out = hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16)
         else:
             out = hash_encode_fwd(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
@@ -264,11 +252,11 @@ def hash_encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, re
     tensor launches kernel B, and kernel E in the backward, or raises.
     ``res_dev`` optionally gives ``res`` as an int32 tensor already on the
     device."""
-    if xyz.device.type != "cpu":
-        cuda_lib.require_cuda("hash_encode", xyz, table)
+    if not (xyz.is_cpu or xyz.is_cuda):  # the binding checks the rest; this spares a build
+        raise ValueError("hash_encode: expected CPU or CUDA tensors, got {}".format(xyz.device))
     if torch.is_grad_enabled() and table.requires_grad:
         return _HashEncodeFunction.apply(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
-    if xyz.device.type == "cpu":
+    if xyz.is_cpu:
         return hash_encode_reference(xyz, table, res, aabb_min, aabb_len, variant, read_bf16)
     return hash_encode_fwd(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
 

@@ -103,22 +103,13 @@ def fused_mlp_fwd(x, weights, save_pre=False, packed=None):
     bf16 pre-activations with ``save_pre``. ``packed`` is the chain's
     ``pack_weights`` buffer, made here when not given. Raises on what it does
     not take."""
-    cuda_lib.require_cuda("fused_mlp", x)
     _check_chain(x, weights)
-    n_rows, d_in = x.shape
     d_out = weights[-1].shape[1]
-    din_pad, dout_pad = _pads(d_in, d_out)
+    din_pad, dout_pad = _pads(x.shape[1], d_out)
     if packed is None:
         packed = pack_weights(weights, din_pad, dout_pad, x.device)
-    out = torch.empty((n_rows, d_out), dtype=torch.float32, device=x.device)
-    pre = None
-    if save_pre:
-        pre = torch.empty((len(weights) - 1, n_rows, 64), dtype=torch.bfloat16, device=x.device)
-    if n_rows > 0:
-        status = cuda_lib.lib().arcnerf_fused_mlp_fwd(
-            x.data_ptr(), n_rows, d_in, din_pad, packed.data_ptr(), 64, len(weights) - 1, d_out, dout_pad,
-            out.data_ptr(), pre.data_ptr() if pre is not None else None, cuda_lib.stream_handle(x.device))
-        cuda_lib.check(status, "fused_mlp")
+    out, pre = cuda_lib.ops().fused_mlp_fwd(x, packed, din_pad, len(weights) - 1, d_out, dout_pad, save_pre)
+    if x.shape[0] > 0:
         fused_mlp.launches += 1
     return (out, pre) if save_pre else out
 
@@ -128,30 +119,19 @@ def fused_mlp_bwd(x, g, weights, pre, packed=None):
     A CPU tensor takes ``fused_mlp_bwd_reference``; a CUDA tensor launches
     kernel D (at most ``D_MAX_HIDDEN`` hidden layers) or raises. ``packed``
     is kernel A's buffer of the same weights, made here when not given."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_mlp_bwd_reference(x, g, weights, pre)
-    cuda_lib.require_cuda("fused_mlp_bwd", x, g)
-    cuda_lib.require_cuda("fused_mlp_bwd", pre, dtype=torch.bfloat16)
     _check_chain(x, weights)
     if len(weights) - 1 > D_MAX_HIDDEN:
         raise ValueError("fused_mlp_bwd: kernel D takes at most {} hidden layers".format(D_MAX_HIDDEN))
-    n_rows, d_in = x.shape
     d_out = weights[-1].shape[1]
-    din_pad, dout_pad = _pads(d_in, d_out)
+    din_pad, dout_pad = _pads(x.shape[1], d_out)
     if packed is None:
         packed = pack_weights(weights, din_pad, dout_pad, x.device)
-    dx = torch.empty((n_rows, d_in), dtype=torch.float32, device=x.device)
     # one row of partial sums per CTA, each written whole; row 0 ends as dW
-    parts = torch.empty((max(1, min(-(-n_rows // 64), D_MAX_PARTS)), packed.numel()), dtype=torch.float32,
-                        device=x.device)
-    if n_rows > 0:
-        status = cuda_lib.lib().arcnerf_fused_mlp_bwd(
-            x.data_ptr(), g.data_ptr(), n_rows, d_in, din_pad, packed.data_ptr(), 64, len(weights) - 1, d_out,
-            dout_pad, pre.data_ptr(), dx.data_ptr(), parts.data_ptr(), cuda_lib.stream_handle(x.device))
-        cuda_lib.check(status, "fused_mlp_bwd")
+    dx, parts = cuda_lib.ops().fused_mlp_bwd(x, g, packed, pre, din_pad, len(weights) - 1, d_out, dout_pad)
+    if x.shape[0] > 0:
         fused_mlp_bwd.launches += 1
-    else:
-        parts.zero_()
     return dx, unpack_grads(parts[0], weights, din_pad, dout_pad)
 
 
@@ -162,7 +142,7 @@ class _FusedMLPFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, *weights):
         packed = None
-        if x.device.type == "cpu":
+        if x.is_cpu:
             out, pre = fused_mlp_reference(x, weights, save_pre=True)
         else:
             # kernel D reads the buffer kernel A read: packed once per step
@@ -184,14 +164,14 @@ def fused_mlp(x, weights, activation=torch.relu):
     tensor launches kernel A, and kernel D in the backward (ReLU chains 64
     wide, D_in <= 64, D_out <= 16), or raises."""
     if activation is not torch.relu:
-        if x.device.type == "cpu":
+        if x.is_cpu:
             return fused_mlp_reference(x, weights, activation)
         raise ValueError("fused_mlp: kernels A and D implement ReLU chains only")
-    if x.device.type != "cpu":
-        cuda_lib.require_cuda("fused_mlp", x)
+    if not (x.is_cpu or x.is_cuda):  # the binding checks the rest; this spares a build
+        raise ValueError("fused_mlp: expected CPU or CUDA tensors, got {}".format(x.device))
     if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights)):
         return _FusedMLPFunction.apply(x, *weights)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_mlp_reference(x, weights)
     return fused_mlp_fwd(x, weights)
 

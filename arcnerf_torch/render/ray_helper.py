@@ -249,25 +249,11 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
 
 def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False):
     """Kernel C on CUDA tensors -> {rgb, depth, mask, trans_end}, or raises."""
-    cuda_lib.require_cuda("segment_march", sigma, radiance, z)
-    cuda_lib.require_cuda("segment_march", off, cnt, dtype=torch.int64)
-    n_rays = off.shape[0]
-    out = {
-        "rgb": torch.empty((n_rays, 3), dtype=torch.float32, device=z.device),
-        "depth": torch.empty((n_rays,), dtype=torch.float32, device=z.device),
-        "mask": torch.empty((n_rays,), dtype=torch.float32, device=z.device),
-        "trans_end": torch.empty((n_rays,), dtype=torch.float32, device=z.device),
-    }
-    if n_rays == 0:
-        return out
-    status = cuda_lib.lib().arcnerf_segment_march_fwd(
-        sigma.data_ptr(), radiance.data_ptr(), z.data_ptr(), off.data_ptr(), cnt.data_ptr(), n_rays, z.shape[0],
-        int(bool(add_inf_z)), bkg.data_ptr() if bkg is not None else None, int(bool(white_bkg)),
-        out["rgb"].data_ptr(), out["depth"].data_ptr(), out["mask"].data_ptr(), out["trans_end"].data_ptr(),
-        cuda_lib.stream_handle(z.device))
-    cuda_lib.check(status, "segment_march")
-    segment_march.launches += 1
-    return out
+    rgb, depth, mask, trans_end = cuda_lib.ops().segment_march_fwd(sigma, radiance, z, off, cnt, bool(add_inf_z), bkg,
+                                                                   bool(white_bkg))
+    if off.shape[0] > 0:
+        segment_march.launches += 1
+    return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
 
 
 def segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None,
@@ -275,21 +261,13 @@ def segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_
     """Gradients (d_sigma (K,), d_radiance (K, 3)) of the compositing. A CPU
     tensor takes ``segment_march_bwd_reference``; a CUDA tensor launches
     kernel F or raises."""
-    if z.device.type == "cpu":
+    if z.is_cpu:
         return segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg,
                                            white_bkg)
-    cuda_lib.require_cuda("segment_march_bwd", sigma, radiance, z, g_rgb, g_depth, g_mask)
-    cuda_lib.require_cuda("segment_march_bwd", off, cnt, dtype=torch.int64)
-    d_sigma, d_rgb = torch.zeros_like(sigma), torch.zeros_like(radiance)
-    n_rays = off.shape[0]
-    if n_rays == 0:
-        return d_sigma, d_rgb
-    status = cuda_lib.lib().arcnerf_segment_march_bwd(
-        sigma.data_ptr(), radiance.data_ptr(), z.data_ptr(), off.data_ptr(), cnt.data_ptr(), n_rays, z.shape[0],
-        int(bool(add_inf_z)), bkg.data_ptr() if bkg is not None else None, int(bool(white_bkg)), g_rgb.data_ptr(),
-        g_depth.data_ptr(), g_mask.data_ptr(), d_sigma.data_ptr(), d_rgb.data_ptr(), cuda_lib.stream_handle(z.device))
-    cuda_lib.check(status, "segment_march_bwd")
-    segment_march_bwd.launches += 1
+    d_sigma, d_rgb = cuda_lib.ops().segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask,
+                                                      bool(add_inf_z), bkg, bool(white_bkg))
+    if off.shape[0] > 0:
+        segment_march_bwd.launches += 1
     return d_sigma, d_rgb
 
 
@@ -299,7 +277,7 @@ class _SegmentMarchFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sigma, radiance, z, off, cnt, bkg, add_inf_z, white_bkg):
-        if z.device.type == "cpu":
+        if z.is_cpu:
             out = segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
         else:
             out = segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
@@ -341,13 +319,13 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
         bkg = torch.as_tensor(bkg_color, dtype=torch.float32, device=z.device).expand(n_rays, 3).contiguous()
     if noise is not None:
         sigma = sigma + noise
-    if z.device.type != "cpu":
-        cuda_lib.require_cuda("segment_march", sigma, radiance, z)
+    if not (z.is_cpu or z.is_cuda):  # the binding checks the rest; this spares a build
+        raise ValueError("segment_march: expected CPU or CUDA tensors, got {}".format(z.device))
     if torch.is_grad_enabled() and (sigma.requires_grad or radiance.requires_grad):
         rgb, depth, mask, trans_end = _SegmentMarchFunction.apply(sigma.contiguous(), radiance.contiguous(), z, off,
                                                                   cnt, bkg, add_inf_z, white_bkg)
         return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
-    if z.device.type == "cpu":
+    if z.is_cpu:
         return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
     return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
 

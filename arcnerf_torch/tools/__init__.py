@@ -16,8 +16,9 @@ repo and each run as ``python -m arcnerf_torch.tools.<name> [--device D]``:
 
 Beside them, ``hash_streams`` makes the point streams that kernel E (the
 hash-table scatter) is tested on: ray-ordered, one cell, padded; and
-``ab_step`` (``--trees``, the card only) runs ``chip_smoke.py``'s serving
-frame and profiled training of two trees in turns on one card.
+``ab_step`` (``--trees``, the card only) runs ``chip_smoke.py``'s launch
+path timing, serving frame and profiled training of two trees in turns on
+one card.
 
 Each tool prints a table and returns its numbers from ``main(argv)``. The
 device defaults to ``cuda:0`` and a tool raises when CUDA is missing;

@@ -8,8 +8,10 @@ Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 Each tree is a checkout of the repository, for example the parent commit
 unpacked by ``git archive`` into a git-ignored directory. The distinct trees
 first build their kernel libraries, all at once. Then each listed run, in
-order and in a process of its own started at its tree's root, renders the
-800x800 serving frame (``chip_smoke.serve``) and trains the recipe
+order and in a process of its own started at its tree's root, times the host
+work a launch of each kernel's wrapper (this checkout's
+``chip_smoke.launch_path`` on the tree's wrappers), renders the 800x800
+serving frame (``chip_smoke.serve``) and trains the recipe
 (``chip_smoke.train(profile=True)``: 400 steps with their gates, 100 timed
 steps, a profile of 4 more). Every run profiles with this checkout's
 ``chip_smoke.profile_steps``, so every tree's device time is split by kernel
@@ -26,7 +28,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 
-BUILD = "from arcnerf_torch.ops import cuda_lib; print('nvcc {:.1f} s'.format(cuda_lib.build()))"
+# builds and loads the tree's kernels: the binding module where the tree has
+# one (``cuda_lib.ops``), else its ctypes library
+BUILD = ("from arcnerf_torch.ops import cuda_lib; print('build seconds', cuda_lib.build()); "
+         "getattr(cuda_lib, 'ops', cuda_lib.lib)()")
 RUN = """
 import importlib.util, os, sys
 import torch
@@ -37,13 +42,15 @@ profiler = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(profiler)
 chip_smoke.profile_steps = profiler.profile_steps
 torch.backends.cuda.matmul.allow_tf32 = False
+for row in profiler.launch_path(torch.device("cuda:0"), torch.Generator(device="cuda:0").manual_seed(0))[1]:
+    print(row)
 os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
 os.makedirs(chip_smoke.WORK_DIR, exist_ok=True)
 chip_smoke.serve(torch.device("cuda:0"))
 chip_smoke.train(profile=True)
 """
 # the lines of a run that the comparison reads
-KEYS = ("render 800x800", "train ", "one step,", "held-out view", "steady steps", "profile of",
+KEYS = ("launch path", "render 800x800", "train ", "one step,", "held-out view", "steady steps", "profile of",
         "profile per step by kernel")
 
 

@@ -5,10 +5,13 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
 
 1. Requires CUDA; prints the card (nvidia-smi name and power limit), torch
    and CUDA versions.
-2. Builds the CUDA kernels A-J from arcnerf_torch/csrc.
+2. Builds the CUDA kernels A-J and their pybind11 binding from
+   arcnerf_torch/csrc into one extension module (nvcc, the binding and the
+   link timed apart).
 3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main paths, and times both (CUDA events), beside the
-   kernel's bound (bytes over 3.35 TB/s or operations over the peak rate,
+   shapes of the main paths, and times both (CUDA events, mean of 20
+   calls; G and H and their library calls also replayed from a CUDA
+   graph), beside the kernel's bound (bytes over 3.35 TB/s or operations over the peak rate,
    whichever is larger) and, for E and G-I, one PyTorch call of the same
    function (index_add_ of E's precomputed updates, index_select, gather,
    index_add_). Kernel E runs on uniform points here and on the training
@@ -20,6 +23,10 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    so that its launch time does not hide it; each build beside its own
    bound; the share of flipped bf16 values checked), and the HMMA
    instructions of their compiled code are counted (cuobjdump).
+   Launch path: the host microseconds a call of every wrapper A-J at a
+   small shape (2000 back-to-back calls, then one synchronize), beside the
+   same launch through the kernel's C entry point by ctypes and the PyTorch
+   calls of G, H and I (index_select, gather, index_add_).
 4. Tools: the hash-grid roofline and the gather/scatter probes
    (``arcnerf_torch.tools``: roofline_hashgrid, probe_gather, probe_scatter,
    probe_cons_forms) print their tables; checks that kernels A, B and G-J
@@ -45,7 +52,8 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
 7. Prints the kernel table as JSON (A-F's launches from the training run,
    G-J's from the tools; G-J's times at the probes' largest shape; A's
    entry also holds its save_pre build, B's and E's their numbers on the
-   training stream), the card line, and as the last line
+   training stream; every entry its wrapper's host_us and ctypes_us), the
+   card line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero. Outputs go to chiprun_out/chip_smoke/;
@@ -656,12 +664,14 @@ def compare_segment_march_bwd(dev, gen):
     return [row], entry
 
 
-def hold(key, label, run, plain, tol, cost, library=None):
+def hold(key, label, run, plain, tol, cost, library=None, graph=False):
     """One kernel case against its plain version: bit-identical when ``tol``
     is 0, else within ``tol`` x max|plain|; timed both ways, and ``library``
-    (one PyTorch call of the same function) where given. ``cost`` is
-    (bytes, flops, peak) for the bound. Returns the printed row and the
-    case's numbers."""
+    (one PyTorch call of the same function) where given; with ``graph`` the
+    kernel and the library call are also replayed from a CUDA graph
+    (``graph_ms``, ``library_graph_ms``: device time without the host's
+    launch work). ``cost`` is (bytes, flops, peak) for the bound. Returns
+    the printed row and the case's numbers."""
     out, ref = run(), plain()
     if tol == 0:
         if not torch.equal(out, ref):
@@ -674,18 +684,28 @@ def hold(key, label, run, plain, tol, cost, library=None):
     entry = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain),
              "library_ms": time_ms(library) if library is not None else None}
     suffix = add_bound(entry, [bound(*cost)])
-    row = "{} {}: max abs err {:.3e} ({}), kernel {:.4f} ms, plain {:.4f} ms, {}{}".format(
+    row = "{} {}: max abs err {:.3e} ({}), kernel {:.4f} ms, plain {:.4f} ms, {}".format(
         key, label, err, "bit-identical" if tol == 0 else "tol {} x max|ref|".format(tol), entry["ms"],
-        entry["plain_ms"], suffix, "" if library is None else ", library {:.4f} ms".format(entry["library_ms"]))
+        entry["plain_ms"], suffix)
+    if library is not None:
+        row += ", library {:.4f} ms (kernel / library {:.2f})".format(entry["library_ms"],
+                                                                      entry["ms"] / entry["library_ms"])
+    if graph:
+        entry["graph_ms"] = graph_ms(run)
+        row += "; from a CUDA graph: kernel {:.4f} ms".format(entry["graph_ms"])
+        if library is not None:
+            entry["library_graph_ms"] = graph_ms(library)
+            row += ", library {:.4f} ms (kernel / library {:.2f})".format(
+                entry["library_graph_ms"], entry["graph_ms"] / entry["library_graph_ms"])
     return row, entry
 
 
-def hold_all(key, cases, tol):
+def hold_all(key, cases, tol, graph=False):
     """``hold`` over (label, run, plain, cost, library) cases; the entry
     carries the worst error and the last (largest) case's numbers."""
     rows, worst, entry = [], 0.0, None
     for case in cases:
-        row, entry = hold(key, *case[:3], tol, *case[3:])
+        row, entry = hold(key, *case[:3], tol, *case[3:], graph=graph)
         rows.append(row)
         worst = max(worst, entry["max_abs_err"])
     entry["max_abs_err"] = worst
@@ -712,7 +732,7 @@ def compare_row_gather(dev, gen):
         cost = (n_rows * 4 + (n_unique(idx) + n_rows) * row_bytes, 0, F32_FLOP_S)
         cases.append((label, lambda t=table, i=idx: row_gather(t, i), lambda t=table, i=idx: row_gather_reference(t, i),
                       cost, lambda t=table, i=idx: torch.index_select(t, 0, i)))
-    return hold_all("G row_gather", cases, 0)
+    return hold_all("G row_gather", cases, 0, graph=True)
 
 
 def compare_lane_gather(dev, gen):
@@ -731,7 +751,7 @@ def compare_lane_gather(dev, gen):
         idx64 = idx.long().expand(m, -1).contiguous()
         cases.append((label, lambda s=src, i=idx: lane_gather(s, i), lambda s=src, i=idx: lane_gather_reference(s, i),
                       cost, lambda s=src, i=idx64: torch.gather(s, 1, i)))
-    return hold_all("H lane_gather", cases, 0)
+    return hold_all("H lane_gather", cases, 0, graph=True)
 
 
 def compare_scatter_add_rows(dev, gen):
@@ -770,6 +790,119 @@ def compare_update_rows(dev, gen):
         cases.append((label, lambda l=lane0, v=vals, o=offs: build_update_rows(l, v, o, 2),
                       lambda l=lane0, v=vals, o=offs: build_update_rows_reference(l, v, o, 2), cost))
     return hold_all("J build_update_rows", cases, 0)
+
+
+LAUNCH_CALLS = 2000  # back-to-back calls a host-time reading
+
+
+def host_us(fn, n=LAUNCH_CALLS):
+    """Host microseconds a call: ``time.perf_counter`` over ``n``
+    back-to-back calls (after a warm-up), read before the one synchronize
+    that ends the run; at the launch path's small shapes the card keeps up,
+    so this is the host's work a call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def launch_path(dev, gen):
+    """Host microseconds a call of every kernel's wrapper (A-J) at a small
+    shape, beside the same launch through its C entry point by ctypes
+    (argument conversion, a stream lookup and a status check a call, the
+    outputs made once: the launch mechanism of the ctypes wrappers, without
+    their Python checks and allocations) and the PyTorch calls of G, H and
+    I. Uses only names the earlier trees of the port also have, so
+    ``arcnerf_torch.tools.ab_step`` runs it on a parent tree too. Returns
+    {key: {"host_us", "ctypes_us"[, "library_host_us"]}} and the rows."""
+    import ctypes
+
+    from arcnerf_torch.models.base_modules.encoding import hash_encode, hash_encode_bwd
+    from arcnerf_torch.ops import cuda_lib
+    from arcnerf_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_fwd, pack_weights
+    from arcnerf_torch.ops.gather_scatter import build_update_rows, lane_gather, row_gather, scatter_add_rows
+    from arcnerf_torch.render.ray_helper import segment_march_bwd, segment_march_fwd
+
+    lib, f32 = cuda_lib.lib(), dict(device=dev)
+
+    def entry(name, *args):  # one launch through ctypes, the stream looked up a call
+        fn = getattr(lib, "arcnerf_" + name)
+        return lambda: cuda_lib.check(fn(*[a() if callable(a) else a for a in args], cuda_lib.stream_handle(dev)),
+                                      name)
+
+    def ptr(t):
+        return t.data_ptr
+
+    rows = 64
+    x = torch.randn((rows, 32), generator=gen, **f32)
+    ws = _chain([32, 64, 16], gen, dev)
+    packed = pack_weights(ws, 32, 16, dev)
+    _, pre = fused_mlp_fwd(x, ws, save_pre=True, packed=packed)
+    g16 = torch.randn((rows, 16), generator=gen, **f32)
+    out16, dx, parts = torch.empty((rows, 16), **f32), torch.empty_like(x), torch.empty((1, packed.numel()), **f32)
+    xyz = torch.rand((rows, 3), generator=gen, **f32) * 2 - 1
+    shape, res, lo, span = (2, 1 << 10, 2), [3, 7], np.full(3, -1.0, np.float32), np.full(3, 2.0, np.float32)
+    table = torch.rand(shape, generator=gen, **f32)
+    res_dev = torch.as_tensor(res, dtype=torch.int32, device=dev)
+    g4, enc_out, grad = torch.randn((rows, 4), generator=gen, **f32), torch.empty((rows, 4), **f32), torch.empty(shape,
+                                                                                                                 **f32)
+    sigma, rgb, z, off, cnt = march_stream(dev, gen, rows, 1024)
+    bkg, g_rgb = torch.rand((rows, 3), generator=gen, **f32), torch.randn((rows, 3), generator=gen, **f32)
+    g_depth, g_mask = torch.randn((rows,), generator=gen, **f32), torch.randn((rows,), generator=gen, **f32)
+    march_out = [torch.empty((rows, 3), **f32)] + [torch.empty((rows,), **f32) for _ in range(3)]
+    d_sigma, d_rgb = torch.empty_like(sigma), torch.empty_like(rgb)
+    gtab, gidx = torch.randn((1024, 128), generator=gen, **f32), _index(gen, dev, 1024, (1024,))
+    gout = torch.empty((1024, 128), **f32)
+    src, hidx = torch.randn((1, 2048), generator=gen, **f32), _index(gen, dev, 2048, (1, 1024))
+    hidx64, hout = hidx.long(), torch.empty((1, 1024), **f32)
+    itab, iidx = torch.zeros((2048, 128), **f32), _index(gen, dev, 2048, (1024,))
+    ig = torch.randn((1024, 128), generator=gen, **f32)
+    lane0, vals, jout = _index(gen, dev, 60, (1024,)), torch.rand((1024, 4), generator=gen, **f32), torch.empty(
+        (1024, 128), **f32)
+    k = z.shape[0]
+    cases = {
+        "A": (lambda: fused_mlp_fwd(x, ws, packed=packed),
+              entry("fused_mlp_fwd", ptr(x), rows, 32, 32, ptr(packed), 64, 1, 16, 16, ptr(out16), None), None),
+        "B": (lambda: hash_encode(xyz, table, res, lo, span, "ngp", True, res_dev),
+              entry("hash_encode_fwd", ptr(xyz), rows, ptr(table), 2, 10, 2, ptr(res_dev),
+                    lambda: cuda_lib.float3(lo), lambda: cuda_lib.float3(span), 0, 1, ptr(enc_out)), None),
+        "C": (lambda: segment_march_fwd(sigma, rgb, z, off, cnt, bkg=bkg),
+              entry("segment_march_fwd", ptr(sigma), ptr(rgb), ptr(z), ptr(off), ptr(cnt), rows, k, 0, ptr(bkg), 0,
+                    *[ptr(t) for t in march_out]), None),
+        "D": (lambda: fused_mlp_bwd(x, g16, ws, pre, packed=packed),
+              entry("fused_mlp_bwd", ptr(x), ptr(g16), rows, 32, 32, ptr(packed), 64, 1, 16, 16, ptr(pre), ptr(dx),
+                    ptr(parts)), None),
+        "E": (lambda: hash_encode_bwd(xyz, g4, shape, res, lo, span, "ngp", res_dev),
+              entry("hash_encode_bwd", ptr(xyz), rows, ptr(g4), 2, 10, 2, ptr(res_dev), lambda: cuda_lib.float3(lo),
+                    lambda: cuda_lib.float3(span), 0, ptr(grad)), None),
+        "F": (lambda: segment_march_bwd(sigma, rgb, z, off, cnt, g_rgb, g_depth, g_mask, False, bkg),
+              entry("segment_march_bwd", ptr(sigma), ptr(rgb), ptr(z), ptr(off), ptr(cnt), rows, k, 0, ptr(bkg), 0,
+                    ptr(g_rgb), ptr(g_depth), ptr(g_mask), ptr(d_sigma), ptr(d_rgb)), None),
+        "G": (lambda: row_gather(gtab, gidx), entry("row_gather", ptr(gtab), 1024, 512, ptr(gidx), 1024, ptr(gout)),
+              ("index_select", lambda: torch.index_select(gtab, 0, gidx))),
+        "H": (lambda: lane_gather(src, hidx), entry("lane_gather", ptr(src), 1, 2048, ptr(hidx), 0, 1024, ptr(hout)),
+              ("gather", lambda: torch.gather(src, 1, hidx64))),
+        "I": (lambda: scatter_add_rows(itab, iidx, ig),
+              entry("scatter_add_rows", ptr(itab), 2048, 128, ptr(iidx), ptr(ig), 1024),
+              ("index_add_", lambda: itab.index_add_(0, iidx, ig))),
+        "J": (lambda: build_update_rows(lane0, vals, (0, 2), 2),
+              entry("build_update_rows", ptr(lane0), ptr(vals), 1024, lambda: (ctypes.c_int * 2)(0, 2), 2, 2,
+                    ptr(jout)), None),
+    }
+    result, out_rows = {}, []
+    for key, (wrapper, through_ctypes, library) in cases.items():
+        result[key] = {"host_us": host_us(wrapper), "ctypes_us": host_us(through_ctypes)}
+        row = "launch path {}: wrapper {:.2f} us a call, its C entry point through ctypes {:.2f} us".format(
+            key, result[key]["host_us"], result[key]["ctypes_us"])
+        if library is not None:
+            result[key]["library_host_us"] = host_us(library[1])
+            row += ", {} {:.2f} us".format(library[0], result[key]["library_host_us"])
+        out_rows.append(row)
+    return result, out_rows
 
 
 def run_tools():
@@ -1056,9 +1189,11 @@ def main():
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
-    nvcc_s = cuda_lib.build(verbose=True)
+    seconds = cuda_lib.build(verbose=True)
+    cuda_lib.ops()
     cuda_lib.lib()
-    print("build: nvcc {:.1f} s, build+load {:.1f} s".format(nvcc_s, time.perf_counter() - t0))
+    print("build: nvcc {nvcc:.1f} s (the last kernel object), binding {binding:.1f} s (bindings.cpp, compiled beside "
+          "them), link {link:.1f} s; build+load {0:.1f} s".format(time.perf_counter() - t0, **seconds))
     mma_kernels = {"A": "fused_mlp_fwd_kernel", "D": "fused_mlp_bwd_kernel"}
     hmma = count_hmma(cuda_lib.library_path(), mma_kernels.values())
     if hmma is None:
@@ -1083,6 +1218,13 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print("kernel comparisons A-J: {:.1f} s".format(time.perf_counter() - t0))
+
+    # ------------------------------------------------------ the launch path
+    host, rows = launch_path(dev, gen)
+    for row in rows:
+        print(row)
+    for key, numbers in host.items():
+        stats[key].update(numbers)
 
     # ------------------------------------------------------- the main paths
     tool_launches = run_tools()

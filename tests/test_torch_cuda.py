@@ -379,6 +379,137 @@ def test_lane_gather_kernel_matches_plain(dev, m, width, idx_rows, n):
     assert torch.equal(out, gs.lane_gather_reference(src, idx))
 
 
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024])
+def test_lane_gather_kernel_odd_shapes(dev, m, n, shared):
+    # bit-identical at widths that are and are not a multiple of 4
+    gen = torch.Generator(device=dev).manual_seed(m * 1031 + n)
+    src = torch.randn((m, 50), generator=gen, device=dev)
+    idx = torch.randint(0, 50, (1 if shared else m, n), generator=gen, device=dev, dtype=torch.int32)
+    assert torch.equal(gs.lane_gather(src, idx), gs.lane_gather_reference(src, idx))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_lane_gather_kernel_takes_index_views_at_a_4_byte_offset(dev, shared):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    m, n = 8, 1024
+    rows = 1 if shared else m
+    src = torch.randn((m, 2048), generator=gen, device=dev)
+    storage = torch.randint(0, 2048, (1 + rows * n,), generator=gen, device=dev, dtype=torch.int32)
+    idx = storage[1:].view(rows, n)
+    assert idx.data_ptr() % 16 == 4
+    assert torch.equal(gs.lane_gather(src, idx), gs.lane_gather_reference(src, idx))
+
+
+@pytest.mark.parametrize("n_rows", [1, 3, 37, 999, 4097])
+@pytest.mark.parametrize("width,dtype", [(128, torch.bfloat16), (128, torch.float32), (4, torch.float32),
+                                         (24, torch.bfloat16), (256, torch.float32)])
+def test_row_gather_kernel_odd_shapes(dev, n_rows, width, dtype):
+    # bit-identical: 256- and 512-byte rows (a half-warp and a warp a row),
+    # 16-, 48- and 1024-byte rows, row counts that leave a group part-full
+    gen = torch.Generator(device=dev).manual_seed(n_rows * 7 + width)
+    table = torch.randn((300, width), generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, 300, (n_rows,), generator=gen, device=dev, dtype=torch.int32)
+    assert torch.equal(gs.row_gather(table, idx), gs.row_gather_reference(table, idx))
+
+
+def test_gather_kernels_replay_from_a_cuda_graph(dev):
+    # G and H captured once, replayed on new inputs written in place
+    gen = torch.Generator(device=dev).manual_seed(13)
+    table = torch.randn((2048, 128), generator=gen, device=dev).to(torch.bfloat16)
+    idx = torch.randint(0, 2048, (1024,), generator=gen, device=dev, dtype=torch.int32)
+    src = torch.randn((8, 2048), generator=gen, device=dev)
+    lanes = torch.randint(0, 2048, (1, 1024), generator=gen, device=dev, dtype=torch.int32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gs.row_gather(table, idx), gs.lane_gather(src, lanes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = gs.row_gather.launches, gs.lane_gather.launches
+    with torch.cuda.graph(graph):
+        rows, picked = gs.row_gather(table, idx), gs.lane_gather(src, lanes)
+    assert (gs.row_gather.launches, gs.lane_gather.launches) == (launches[0] + 1, launches[1] + 1)
+    for _ in range(2):
+        idx.copy_(torch.randint(0, 2048, (1024,), generator=gen, device=dev, dtype=torch.int32))
+        src.copy_(torch.randn((8, 2048), generator=gen, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(rows, gs.row_gather_reference(table, idx))
+        assert torch.equal(picked, gs.lane_gather_reference(src, lanes))
+
+
+def _binding_refusals(dev):
+    from arcnerf_torch.ops import cuda_lib
+
+    ops = cuda_lib.ops()
+    f32, i32, i64 = dict(device=dev), dict(device=dev, dtype=torch.int32), dict(device=dev, dtype=torch.int64)
+    zeros = torch.zeros
+    x, packed = zeros((64, 32), **f32), zeros((32 * 64 + 64 * 16,), device=dev, dtype=torch.bfloat16)
+    xyz, res = zeros((16, 3), **f32), zeros((2,), **i32)
+    march = (zeros(8, **f32), zeros((8, 3), **f32), zeros(8, **f32), zeros(2, **i64), zeros(2, **i64))
+    return {
+        "row_gather int64 index": (lambda: gs.row_gather(zeros((8, 4), **f32), zeros(2, **i64)), "int32"),
+        "row_gather 12-byte rows": (lambda: gs.row_gather(zeros((8, 3), **f32), zeros(2, **i32)), "16-byte"),
+        "row_gather f64 table": (lambda: gs.row_gather(zeros((8, 4), device=dev, dtype=torch.float64),
+                                                       zeros(2, **i32)), "f32 or bf16"),
+        "row_gather host index": (lambda: gs.row_gather(zeros((8, 4), **f32), torch.zeros(2, dtype=torch.int32)),
+                                  "CUDA"),
+        "row_gather unaligned table": (lambda: gs.row_gather(zeros(8 * 4 + 1, **f32)[1:].view(8, 4),
+                                                             zeros(2, **i32)), "16-byte"),
+        "lane_gather row mismatch": (lambda: gs.lane_gather(zeros((8, 4), **f32), zeros((3, 2), **i32)),
+                                     "do not match"),
+        "lane_gather 1-D index": (lambda: gs.lane_gather(zeros((8, 4), **f32), zeros(2, **i32)), "2-D index"),
+        "lane_gather strided src": (lambda: gs.lane_gather(zeros((8, 8), **f32)[:, ::2], zeros((1, 2), **i32)),
+                                    "contiguous"),
+        "scatter_add_rows width 6": (lambda: gs.scatter_add_rows(zeros((8, 6), **f32), zeros(2, **i32),
+                                                                 zeros((2, 6), **f32)), "multiple of 4"),
+        "scatter_add_rows unaligned": (lambda: gs.scatter_add_rows(zeros(8 * 4 + 1, **f32)[1:].view(8, 4),
+                                                                   zeros(2, **i32), zeros((2, 4), **f32)), "16-byte"),
+        "build_update_rows five offsets": (lambda: gs.build_update_rows(zeros(4, **i32), zeros((4, 10), **f32),
+                                                                        (0, 1, 2, 3, 4), 2), "1-4 offsets"),
+        "fused_mlp_fwd packed size": (lambda: ops.fused_mlp_fwd(x, packed[:5], 32, 1, 16, 16, False),
+                                      "packed weights"),
+        "fused_mlp_bwd pre type": (lambda: ops.fused_mlp_bwd(x, zeros((64, 16), **f32), packed,
+                                                             zeros((1, 64, 64), **f32), 32, 1, 16, 16), "bfloat16"),
+        "hash_encode int64 levels": (lambda: ops.hash_encode_fwd(xyz, zeros((2, 16, 2), **f32), res.long(), 4,
+                                                                 (0, 0, 0), (1, 1, 1), 0, True), "int32"),
+        "hash_encode unknown variant": (lambda: ops.hash_encode_fwd(xyz, zeros((2, 16, 2), **f32), res, 4,
+                                                                    (0, 0, 0), (1, 1, 1), 7, True),
+                                        "does not take these arguments"),
+        "hash_encode_bwd g size": (lambda: ops.hash_encode_bwd(xyz, zeros((16, 3), **f32), res, 2, 4, 2, (0, 0, 0),
+                                                               (1, 1, 1), 0), "values in g"),
+        "segment_march int32 offsets": (lambda: ops.segment_march_fwd(*march[:3], march[3].int(), march[4], False,
+                                                                      None, False), "int64"),
+        "segment_march_bwd g_rgb size": (lambda: ops.segment_march_bwd(*march, zeros((3, 3), **f32),
+                                                                       zeros(2, **f32), zeros(2, **f32), False, None,
+                                                                       False), "g_rgb"),
+    }
+
+
+_REFUSALS = ["row_gather int64 index", "row_gather 12-byte rows", "row_gather f64 table", "row_gather host index",
+             "row_gather unaligned table", "lane_gather row mismatch", "lane_gather 1-D index",
+             "lane_gather strided src", "scatter_add_rows width 6", "scatter_add_rows unaligned",
+             "build_update_rows five offsets", "fused_mlp_fwd packed size", "fused_mlp_bwd pre type",
+             "hash_encode int64 levels", "hash_encode unknown variant", "hash_encode_bwd g size",
+             "segment_march int32 offsets", "segment_march_bwd g_rgb size"]
+
+
+@pytest.mark.parametrize("case", _REFUSALS)
+def test_binding_refuses_what_the_kernels_do_not_take(dev, case):
+    # ValueError with the words of the Python checks the binding replaced;
+    # no launch is counted
+    cases = _binding_refusals(dev)
+    assert sorted(cases) == sorted(_REFUSALS)
+    call, words = cases[case]
+    launches = [f.launches for f in (gs.row_gather, gs.lane_gather, gs.scatter_add_rows, gs.build_update_rows)]
+    with pytest.raises(ValueError, match=words):
+        call()
+    assert launches == [f.launches for f in (gs.row_gather, gs.lane_gather, gs.scatter_add_rows,
+                                             gs.build_update_rows)]
+
+
 @pytest.mark.parametrize("n_table,width,n", [(2048, 128, 1024), (100, 4, 1000), (1000, 1, 5000), (64 ** 3, 1, 1 << 18),
                                              (8192, 128, 1 << 21), (1 << 23, 1, 1 << 25)])
 def test_scatter_add_rows_kernel_matches_plain(dev, n_table, width, n):
