@@ -183,6 +183,10 @@ Tensor hash_encode_fwd(const Tensor& xyz, const Tensor& table, const Tensor& res
                       ": expected an (L, 2^", log2_table, ", F) table, got shape ", shape_str(table.sizes()));
     const int64_t n_levels = table.size(0), n_feat = table.size(2);
     require_hash_inputs(name, xyz, res, n_levels);
+    // kernel B reads an entry as one vector of n_feat floats
+    const int64_t align = std::min<int64_t>(4 * n_feat, 16);
+    TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(table.data_ptr()) % align == 0, name,
+                      ": the kernel needs the table aligned to ", align, " bytes");
     c10::cuda::CUDAGuard guard(xyz.device());
     Tensor out = at::empty({xyz.size(0), n_levels * n_feat}, xyz.options());
     if (xyz.size(0) > 0) {

@@ -20,15 +20,23 @@ constexpr uint32_t kPrime2 = 805459861u;
 constexpr uint32_t kQuadSY = 31u;
 enum Variant { kNgp = 0, kPair = 1, kQuad = 2 };
 
-// xyz: the point; r: the level's resolution; mn/len: volume corner and side
-// lengths. Fills entry[c] (row in the level's table) and w[c] per corner c.
-__device__ __forceinline__ void corners(float x, float y, float z, int r, float mn0, float mn1, float mn2,
-                                        float len0, float len1, float len2, uint32_t table_size, int variant,
-                                        uint32_t (&entry)[8], float (&w)[8]) {
+// The point's position in the volume, in [0, 1] inside it: (x - mn) / len
+// per axis, the first rounding steps of corners(). A caller that visits
+// many levels of one point computes it once.
+__device__ __forceinline__ float3 normalize(float x, float y, float z, float mn0, float mn1, float mn2, float len0,
+                                            float len1, float len2) {
+    return make_float3(__fdiv_rn(__fsub_rn(x, mn0), len0), __fdiv_rn(__fsub_rn(y, mn1), len1),
+                       __fdiv_rn(__fsub_rn(z, mn2), len2));
+}
+
+// n: the point as normalize() gives it; r: the level's resolution. Fills
+// entry[c] (row in the level's table) and w[c] per corner c.
+__device__ __forceinline__ void corners(float3 n, int r, uint32_t table_size, int variant, uint32_t (&entry)[8],
+                                        float (&w)[8]) {
     const float rf = static_cast<float>(r);
-    const float px = __fmul_rn(__fdiv_rn(__fsub_rn(x, mn0), len0), rf);
-    const float py = __fmul_rn(__fdiv_rn(__fsub_rn(y, mn1), len1), rf);
-    const float pz = __fmul_rn(__fdiv_rn(__fsub_rn(z, mn2), len2), rf);
+    const float px = __fmul_rn(n.x, rf);
+    const float py = __fmul_rn(n.y, rf);
+    const float pz = __fmul_rn(n.z, rf);
     const int x0 = min(max(static_cast<int>(floorf(px)), 0), r - 1);
     const int y0 = min(max(static_cast<int>(floorf(py)), 0), r - 1);
     const int z0 = min(max(static_cast<int>(floorf(pz)), 0), r - 1);
@@ -62,6 +70,14 @@ __device__ __forceinline__ void corners(float x, float y, float z, int r, float 
         entry[c] = e;
         w[c] = __fmul_rn(__fmul_rn(wx[cx], wy[cy]), wz[cz]);
     }
+}
+
+// xyz: the point; r: the level's resolution; mn/len: volume corner and side
+// lengths. The same entries and weights as above, from the raw point.
+__device__ __forceinline__ void corners(float x, float y, float z, int r, float mn0, float mn1, float mn2,
+                                        float len0, float len1, float len2, uint32_t table_size, int variant,
+                                        uint32_t (&entry)[8], float (&w)[8]) {
+    corners(normalize(x, y, z, mn0, mn1, mn2, len0, len1, len2), r, table_size, variant, entry, w);
 }
 
 }  // namespace hash_grid

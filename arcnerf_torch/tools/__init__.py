@@ -14,8 +14,10 @@ repo and each run as ``python -m arcnerf_torch.tools.<name> [--device D]``:
   construction forms (kernel J against the XLA forms) and their scatter
   tail (kernel I).
 
-Beside them, ``hash_streams`` makes the point streams that kernel E (the
-hash-table scatter) is tested on: ray-ordered, one cell, padded; and
+Beside them, ``hash_streams`` makes the point streams that kernels B and E
+(the hash-grid encode and table scatter) are tested on: ray-ordered, one
+cell, padded; ``march_streams`` the compacted sample streams of kernels C
+and F (the compositing), with segments of 0-512 samples; and
 ``ab_step`` (``--trees``, the card only) runs ``chip_smoke.py``'s launch
 path timing, serving frame and profiled training of two trees in turns on
 one card.

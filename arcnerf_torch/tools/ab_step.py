@@ -13,10 +13,14 @@ work a launch of each kernel's wrapper (this checkout's
 ``chip_smoke.launch_path`` on the tree's wrappers), renders the 800x800
 serving frame (``chip_smoke.serve``) and trains the recipe
 (``chip_smoke.train(profile=True)``: 400 steps with their gates, 100 timed
-steps, a profile of 4 more). Every run profiles with this checkout's
-``chip_smoke.profile_steps``, so every tree's device time is split by kernel
-the same way. Each run's output follows a header naming it; the lines that
-carry the comparison are repeated at the end.
+steps, a profile of 4 more), then holds the tree's kernels B, C and F
+against their plain versions on the streams one more training step hands
+them, each timed from a CUDA graph. Every run profiles, captures those
+streams and times them with this checkout's ``chip_smoke`` functions
+(``profile_steps``, ``capture_training_streams``,
+``compare_hash_encode_stream``, ``compare_march_stream``), so every tree's
+kernels are measured the same way. Each run's output follows a header
+naming it; the lines that carry the comparison are repeated at the end.
 """
 
 import argparse
@@ -47,11 +51,15 @@ for row in profiler.launch_path(torch.device("cuda:0"), torch.Generator(device="
 os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
 os.makedirs(chip_smoke.WORK_DIR, exist_ok=True)
 chip_smoke.serve(torch.device("cuda:0"))
-chip_smoke.train(profile=True)
+chip_smoke.capture_hash_encode_bwd_stream = profiler.capture_training_streams  # the name in trees before it
+_, stream = chip_smoke.train(profile=True)
+for row in profiler.compare_hash_encode_stream(stream)[0] + profiler.compare_march_stream(stream["march"])[0]:
+    print(row)
 """
 # the lines of a run that the comparison reads
 KEYS = ("launch path", "render 800x800", "train ", "one step,", "held-out view", "steady steps", "profile of",
-        "profile per step by kernel")
+        "profile per step by kernel", "B hash_encode training stream", "compositing stream",
+        "C segment_march captured", "F segment_march_bwd captured")
 
 
 def main(argv=None):

@@ -17,8 +17,10 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    index_add_). Kernel E runs on uniform points here and on the training
    stream after step 6, each also through its C entry point alone and on
    levels 0-1 and 2-15 apart; kernel B also runs on that stream's points
-   with the trained table. Kernels A (both builds, inference and save_pre)
-   and D are also run twice for bit-identical results and timed beside a
+   with the trained table, C and F on step 6's compositing stream. B's, C's
+   and F's rows quote the parent kernels' times from PERF.md (PARENT_MS).
+   Kernels A (both builds, inference and save_pre) and D are also run
+   twice for bit-identical results and timed beside a
    bf16 chain of cuBLAS calls (A through its C entry point in a CUDA graph,
    so that its launch time does not hide it; each build beside its own
    bound; the share of flipped bf16 values checked), and the HMMA
@@ -45,14 +47,18 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    on the CPU, and that the held-out view renders at >= 20 dB PSNR through
    the serving path; prints the ray bucket, valid samples per ray and peak
    memory, then times 100 more steps (CUDA events: ms/step, rays/s), and
-   captures the stream kernel E receives in one more step (its valid and
-   padding rows are printed). With --profile, also profiles 4 more steps
-   (torch.profiler) and prints the device-time split (by kernel name and
-   for each of A-F) and idle share.
+   captures the streams kernels E and F receive in one more step (E's
+   valid and padding rows are printed). With --profile, also profiles 4
+   more steps (torch.profiler) and prints the device-time split (by kernel
+   name and for each of A-F) and idle share. Then kernel B on that step's
+   points with the trained table, and kernels C and F on that step's
+   compositing stream (its segment-length distribution printed), each held
+   against its plain version and timed from a CUDA graph beside its bound.
 7. Prints the kernel table as JSON (A-F's launches from the training run,
    G-J's from the tools; G-J's times at the probes' largest shape; A's
    entry also holds its save_pre build, B's and E's their numbers on the
-   training stream; every entry its wrapper's host_us and ctypes_us), the
+   training stream, C's and F's on the captured compositing stream (F's with
+   its segment lengths); every entry its wrapper's host_us and ctypes_us), the
    card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -88,6 +94,10 @@ D_TOL, E_TOL, F_TOL = 1e-4, 1e-4, 1e-4
 # I: f32 atomics add in another order, relative to the largest value
 I_TOL = 1e-5
 RGB_MAX, RGB_MEAN, DEPTH_MAX = 2e-2, 1e-3, 5e-2
+# the earlier kernels' ms as PERF.md records them (NVIDIA H100 80GB HBM3,
+# 700.00 W): B on the training stream from a CUDA graph, C and F on
+# march_stream through CUDA events
+PARENT_MS = {"B": 0.1364, "C": 0.0433, "F": 0.0340}
 TRAIN_STEPS, STEADY_STEPS, PSNR_FLOOR = 400, 100, 20.0
 # one training step on the card vs the plain path on the CPU (same batch,
 # no draws): bf16 flips in the MLPs and f32 sums in another order (atomics)
@@ -337,14 +347,29 @@ def compare_segment_march(dev, gen):
         err = max(err, max_err(out[k], ref[k]))
     ms = time_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg))
     plain = time_ms(lambda: segment_march_reference(sigma, rgb, z, off, cnt, bkg=bkg))
-    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
-    # the valid samples' sigma, rgb, z; per ray off, cnt (int64), bkg in and
-    # rgb, depth, mask, trans_end out; ~10 f32 flops a sample
-    n_valid = int(cnt.sum())
-    suffix = add_bound(entry, [bound(n_valid * 20 + C_RAYS * (16 + 12 + 24), n_valid * 10, F32_FLOP_S)])
-    row = "C segment_march (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms, " \
-          "plain {:.4f} ms, {}".format(err, C_TOL, ms, plain, suffix)
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "graph_ms": graph_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg))}
+    suffix = add_bound(entry, [c_bound(cnt, C_RAYS)])
+    row = "C segment_march (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms (CUDA graph " \
+          "{:.4f} ms; parent {} ms, PERF.md), plain {:.4f} ms, {}".format(err, C_TOL, ms, entry["graph_ms"],
+                                                                         PARENT_MS["C"], plain, suffix)
     return [row], entry
+
+
+def c_bound(cnt, n_rays):
+    """Kernel C's bound: the valid samples' sigma, rgb, z and per ray off,
+    cnt (int64), bkg in, rgb, depth, mask, trans_end out; ~10 f32 flops a
+    sample."""
+    n_valid = int(cnt.sum())
+    return bound(n_valid * 20 + n_rays * (16 + 12 + 24), n_valid * 10, F32_FLOP_S)
+
+
+def f_bound(cnt, n_rays, k_total):
+    """Kernel F's bound: the valid samples' sigma, rgb, z and the per-ray
+    gradients, bkg, off, cnt in; d_sigma and d_rgb over the whole stream
+    out; ~20 flops a sample."""
+    n_valid = int(cnt.sum())
+    return bound(n_valid * 20 + n_rays * 48 + k_total * 16, n_valid * 20, F32_FLOP_S)
 
 
 def cublas_chain_bwd(x, g, wb, pre):
@@ -541,34 +566,48 @@ def compare_hash_encode_bwd(dev, gen):
                                 ("quad", "ngp"), enc.variant)
 
 
-def capture_hash_encode_bwd_stream(trainer):
-    """One more training step with ``encoding.hash_encode_bwd`` wrapped:
-    the stream kernel E received in it (xyz, g, table shape, res, volume,
-    variant; kernel B encoded the same xyz), the step's valid sample count,
-    and the trained table as the step left it, with its read precision."""
+def capture_training_streams(trainer):
+    """One more training step with ``encoding.hash_encode_bwd`` and
+    ``ray_helper.segment_march_bwd`` wrapped: the stream kernel E received
+    in it (xyz, g, table shape, res, volume, variant; kernel B encoded the
+    same xyz), the step's valid sample count, the trained table as the step
+    left it with its read precision, and under "march" the compositing
+    stream kernels C and F received (sigma, rgb, z, off, cnt, the incoming
+    g_rgb, g_depth, g_mask, and the flags and background)."""
     from arcnerf_torch.models.base_modules import encoding
+    from arcnerf_torch.render import ray_helper
 
     enc = next(m for m in trainer.model.modules() if isinstance(m, encoding.HashGridEmbedder))
 
     inner, seen = encoding.hash_encode_bwd, []
+    inner_f, seen_f = ray_helper.segment_march_bwd, []
 
     def wrapper(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_dev=None):
         seen.append(dict(xyz=xyz.clone(), g=g.clone(), shape=tuple(table_shape), res=list(res), aabb_min=aabb_min,
                          aabb_len=aabb_len, variant=variant))
         return inner(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_dev)
 
-    # the wrapper counts its launch on the module's hash_encode_bwd: the
-    # wrapped one, for this step
-    wrapper.launches = inner.launches
-    encoding.hash_encode_bwd = wrapper
+    def wrapper_f(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None, white_bkg=False):
+        seen_f.append(dict(sigma=sigma.clone(), rgb=radiance.clone(), z=z.clone(), off=off.clone(), cnt=cnt.clone(),
+                           g_rgb=g_rgb.clone(), g_depth=g_depth.clone(), g_mask=g_mask.clone(), add_inf_z=add_inf_z,
+                           bkg=None if bkg is None else bkg.clone(), white_bkg=white_bkg))
+        return inner_f(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg, white_bkg)
+
+    # each wrapper counts its launch on the module's function: the wrapped
+    # one, for this step
+    wrapper.launches, wrapper_f.launches = inner.launches, inner_f.launches
+    encoding.hash_encode_bwd, ray_helper.segment_march_bwd = wrapper, wrapper_f
     try:
         stats = trainer.train_step(trainer.step)
     finally:
         encoding.hash_encode_bwd, inner.launches = inner, wrapper.launches
-    if len(seen) != 1:
-        raise AssertionError("a training step called kernel E {} times, not once".format(len(seen)))
+        ray_helper.segment_march_bwd, inner_f.launches = inner_f, wrapper_f.launches
+    if len(seen) != 1 or len(seen_f) != 1:
+        raise AssertionError("a training step called kernel E {} and kernel F {} times, not once each".format(
+            len(seen), len(seen_f)))
     stream = seen[0]
-    stream.update(n_valid=int(stats["n_valid_pts"]), table=enc.embeddings.detach().clone(), read_bf16=enc.read_bf16)
+    stream.update(n_valid=int(stats["n_valid_pts"]), table=enc.embeddings.detach().clone(), read_bf16=enc.read_bf16,
+                  march=seen_f[0])
     return stream
 
 
@@ -599,9 +638,9 @@ def compare_hash_encode_stream(stream):
                                      n_pts * n_levels * 8 * n_feat * 2, F32_FLOP_S)])
     entry["touched_entries"] = touched
     row = "B hash_encode training stream ({} pts, {} variant, trained table, {} entries reached): max abs err {:.3e} " \
-          "(tol {}), kernel {:.4f} ms (CUDA graph; CUDA events {:.4f} ms), plain {:.4f} ms, {}".format(
-              n_pts, variant, touched, entry["max_abs_err"], B_TOL, entry["ms"], entry["events_ms"], entry["plain_ms"],
-              suffix)
+          "(tol {}), kernel {:.4f} ms (CUDA graph; CUDA events {:.4f} ms; parent {} ms, PERF.md), plain {:.4f} ms, " \
+          "{}".format(n_pts, variant, touched, entry["max_abs_err"], B_TOL, entry["ms"], entry["events_ms"],
+                      PARENT_MS["B"], entry["plain_ms"], suffix)
     return [row], entry
 
 
@@ -654,14 +693,78 @@ def compare_segment_march_bwd(dev, gen):
     err = max(check_scaled("segment_march_bwd d_sigma", d_sigma, r_sigma, F_TOL),
               check_scaled("segment_march_bwd d_rgb", d_rgb, r_rgb, F_TOL))
     ms, plain = time_ms(lambda: segment_march_bwd(*args)), time_ms(lambda: segment_march_bwd_reference(*args), 3)
-    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
-    # the valid samples' sigma, rgb, z and the per-ray gradients, bkg, off,
-    # cnt in; d_sigma and d_rgb over the whole stream out; ~20 flops a sample
-    n_valid = int(cnt.sum())
-    suffix = add_bound(entry, [bound(n_valid * 20 + C_RAYS * 48 + C_STREAM * 16, n_valid * 20, F32_FLOP_S)])
-    row = "F segment_march_bwd (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} ms, " \
-          "plain {:.4f} ms, {}".format(err, F_TOL, ms, plain, suffix)
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "graph_ms": graph_ms(lambda: segment_march_bwd(*args))}
+    suffix = add_bound(entry, [f_bound(cnt, C_RAYS, C_STREAM)])
+    row = "F segment_march_bwd (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} ms " \
+          "(CUDA graph {:.4f} ms; parent {} ms, PERF.md), plain {:.4f} ms, {}; segments: {}".format(
+              err, F_TOL, ms, entry["graph_ms"], PARENT_MS["F"], plain, suffix,
+              length_text(segment_lengths(off, cnt, C_STREAM)))
     return [row], entry
+
+
+def segment_lengths(off, cnt, k_total):
+    """The samples of each ray's segment inside the stream (clipped by the
+    budget, as kernels C and F read them)."""
+    return (off + cnt).clamp_max(k_total) - off.clamp_max(k_total)
+
+
+def length_summary(n):
+    """The distribution of segment lengths ``n`` (int64, one a ray)."""
+    nf = n.double()
+    q = torch.quantile(nf, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=n.device)).tolist()
+    total = max(int(n.sum()), 1)
+    return {"rays": n.numel(), "empty": int((n == 0).sum()), "samples": int(n.sum()), "mean": float(nf.mean()),
+            "p50": q[0], "p90": q[1], "p99": q[2], "max": int(n.max()), "above_16": int((n > 16).sum()),
+            "above_32": int((n > 32).sum()), "above_128": int((n > 128).sum()),
+            "samples_above_32": int(n[n > 32].sum()) / total}
+
+
+def length_text(n):
+    d = length_summary(n)
+    return ("{rays} rays ({empty} empty), {samples} samples, mean {mean:.2f}, p50 {p50:.0f}, p90 {p90:.0f}, "
+            "p99 {p99:.0f}, max {max}; {above_16} rays above 16, {above_32} above 32 (holding {samples_above_32:.1%} "
+            "of the samples), {above_128} above 128".format(**d))
+
+
+def compare_march_stream(march):
+    """Kernels C and F on the compositing stream one training step hands
+    them, against their plain versions (C_TOL, F_TOL), each timed from a
+    CUDA graph and through CUDA events, beside its bound; and the stream's
+    segment-length distribution."""
+    from arcnerf_torch.render.ray_helper import (segment_march_bwd, segment_march_bwd_reference, segment_march_fwd,
+                                                 segment_march_reference)
+
+    sigma, rgb, z, off, cnt = (march[k] for k in ("sigma", "rgb", "z", "off", "cnt"))
+    flags = (march["add_inf_z"], march["bkg"], march["white_bkg"])
+    n_rays, k_total = off.shape[0], z.shape[0]
+    lengths = segment_lengths(off, cnt, k_total)
+    rows = ["compositing stream of a training step: {} rows, add_inf_z {}, bkg {}, white_bkg {}; segments: {}".format(
+        k_total, flags[0], "per ray" if flags[1] is not None else None, flags[2], length_text(lengths))]
+    out, ref = segment_march_fwd(sigma, rgb, z, off, cnt, *flags), segment_march_reference(sigma, rgb, z, off, cnt,
+                                                                                           *flags)
+    err = 0.0
+    for k in ("rgb", "depth", "mask", "trans_end"):
+        check_close("segment_march captured " + k, out[k], ref[k], C_TOL, C_TOL)
+        err = max(err, max_err(out[k], ref[k]))
+    c = {"max_abs_err": err, "ms": graph_ms(lambda: segment_march_fwd(sigma, rgb, z, off, cnt, *flags)),
+         "events_ms": time_ms(lambda: segment_march_fwd(sigma, rgb, z, off, cnt, *flags)),
+         "plain_ms": time_ms(lambda: segment_march_reference(sigma, rgb, z, off, cnt, *flags), 3)}
+    suffix = add_bound(c, [c_bound(lengths, n_rays)])
+    rows.append("C segment_march captured stream ({} rays): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms (CUDA "
+                "graph; CUDA events {:.4f} ms), plain {:.4f} ms, {}".format(n_rays, err, C_TOL, c["ms"],
+                                                                           c["events_ms"], c["plain_ms"], suffix))
+    args = (sigma, rgb, z, off, cnt, march["g_rgb"], march["g_depth"], march["g_mask"], *flags)
+    (d_sigma, d_rgb), (r_sigma, r_rgb) = segment_march_bwd(*args), segment_march_bwd_reference(*args)
+    err = max(check_scaled("segment_march_bwd captured d_sigma", d_sigma, r_sigma, F_TOL),
+              check_scaled("segment_march_bwd captured d_rgb", d_rgb, r_rgb, F_TOL))
+    f = {"max_abs_err": err, "ms": graph_ms(lambda: segment_march_bwd(*args)),
+         "events_ms": time_ms(lambda: segment_march_bwd(*args)),
+         "plain_ms": time_ms(lambda: segment_march_bwd_reference(*args), 3)}
+    suffix = add_bound(f, [f_bound(lengths, n_rays, k_total)])
+    rows.append("F segment_march_bwd captured stream ({} rays): max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} "
+                "ms (CUDA graph; CUDA events {:.4f} ms), plain {:.4f} ms, {}".format(
+                    n_rays, err, F_TOL, f["ms"], f["events_ms"], f["plain_ms"], suffix))
+    return rows, {"C": c, "F": f, "lengths": length_summary(lengths)}
 
 
 def hold(key, label, run, plain, tol, cost, library=None, graph=False):
@@ -1072,7 +1175,7 @@ def train(profile=False):
     if not val["psnr"] >= PSNR_FLOOR:
         raise AssertionError("training: held-out PSNR {} below {}".format(val["psnr"], PSNR_FLOOR))
     steady_steps(trainer)
-    stream = capture_hash_encode_bwd_stream(trainer)
+    stream = capture_training_streams(trainer)
     if profile:
         profile_steps(trainer)
     shutil.rmtree(expr)
@@ -1241,6 +1344,13 @@ def main():
     for row in rows:
         print(row)
     stats["B"]["max_abs_err"] = max(stats["B"]["max_abs_err"], stats["B"]["training_stream"]["max_abs_err"])
+    rows, captured = compare_march_stream(e_stream["march"])
+    for row in rows:
+        print(row)
+    for key in "CF":
+        stats[key]["captured_stream"] = captured[key]
+        stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], captured[key]["max_abs_err"])
+    stats["F"]["captured_stream"]["lengths"] = captured["lengths"]
     del e_stream
 
     meta = {

@@ -24,6 +24,7 @@ from arcnerf_torch.ops.fused_mlp import (fused_mlp, fused_mlp_bwd, fused_mlp_bwd
 from arcnerf_torch.render.ray_helper import (segment_march, segment_march_bwd, segment_march_bwd_reference,
                                              segment_march_reference)
 from arcnerf_torch.tools.hash_streams import one_cell_stream, pad_stream, ray_stream
+from arcnerf_torch.tools.march_streams import long_tail_lengths, ray_gradients, segment_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -279,6 +280,117 @@ def test_segment_march_bwd_kernel_matches_plain(dev, add_inf_z, white_bkg, bkg):
     (ds, dr), (rs, rr) = segment_march_bwd(*args), segment_march_bwd_reference(*args)
     _scaled_close(ds, rs, 1e-4)
     _scaled_close(dr, rr, 1e-4)
+
+
+F_STREAMS = ("long_tail", "ragged", "clipped", "short")
+F_FLAGS = [(False, False, True), (True, False, False), (False, True, False), (True, False, True), (False, False, False)]
+
+
+def _f_args(kind, add_inf_z, white_bkg, bkg, dev):
+    """Kernel F's arguments on a stream of segments of 0-512 samples (every
+    chunk boundary of a 32-lane group among them): 4096 rays; 1001 rays (not
+    a whole block of rays); a budget that clips one ray and leaves the rest
+    empty; or 0-32 samples a ray."""
+    n_rays = 1001 if kind == "ragged" else 4096
+    lengths = long_tail_lengths(n_rays, 30, max_len=32 if kind == "short" else 512)
+    k_total = int(lengths.sum()) * 2 // 3 if kind == "clipped" else int(lengths.sum()) + 100
+    sigma, rgb, z, off, cnt = segment_stream(lengths, k_total, 31)
+    g_rgb, g_depth, g_mask, b = ray_gradients(n_rays, 32)
+    t = [torch.from_numpy(a).to(dev) for a in (sigma, rgb, z, off, cnt, g_rgb, g_depth, g_mask, b)]
+    return (*t[:8], add_inf_z, t[8] if bkg else None, white_bkg)
+
+
+@pytest.mark.parametrize("kind", F_STREAMS)
+@pytest.mark.parametrize("add_inf_z,white_bkg,bkg", F_FLAGS)
+def test_segment_march_bwd_kernel_on_long_tail_streams(dev, kind, add_inf_z, white_bkg, bkg):
+    # 1e-4 of the largest value: expf, and the warp scans' tree order in
+    # place of the plain version's sequential order
+    args = _f_args(kind, add_inf_z, white_bkg, bkg, dev)
+    launches = segment_march_bwd.launches
+    (ds, dr), (rs, rr) = segment_march_bwd(*args), segment_march_bwd_reference(*args)
+    assert segment_march_bwd.launches == launches + 1
+    _scaled_close(ds, rs, 1e-4)
+    _scaled_close(dr, rr, 1e-4)
+    k_in = int(args[4].sum())
+    assert torch.all(ds[k_in:] == 0) and torch.all(dr[k_in:] == 0)  # padding rows untouched
+
+
+def test_segment_march_bwd_kernel_is_deterministic(dev):
+    # no atomics: two calls agree bit for bit
+    args = _f_args("long_tail", False, False, True, dev)
+    (a, b), (c, d) = segment_march_bwd(*args), segment_march_bwd(*args)
+    assert torch.equal(a, c) and torch.equal(b, d)
+
+
+B_STREAMS = ("ray", "one_cell", "padded", "ragged")
+
+
+@pytest.mark.parametrize("kind", B_STREAMS)
+@pytest.mark.parametrize("n_feat", [1, 2, 4, 8])
+@pytest.mark.parametrize("read_bf16", [True, False])
+@pytest.mark.parametrize("variant", ["quad", "pair", "ngp"])
+def test_hash_encode_kernel_on_streams(dev, kind, n_feat, read_bf16, variant):
+    # bit-identical: the same entries and weights as the plain version,
+    # summed in its corner order with unfused f32 multiplies and adds
+    xyz, _ = _e_stream(kind, n_feat, dev)
+    enc = HashGridEmbedder(n_levels=16, n_feat_per_entry=n_feat, hashmap_size=14, side=2.0, include_input=False)
+    gen = torch.Generator(device=dev).manual_seed(n_feat)
+    table = torch.rand((16, 1 << 14, n_feat), generator=gen, device=dev) * 2 - 1
+    args = (xyz, table, enc.resolutions, enc.aabb_min, enc.aabb_len, variant, read_bf16)
+    launches = hash_encode.launches
+    out = hash_encode(*args)
+    assert hash_encode.launches == launches + 1
+    assert torch.equal(out, hash_encode_reference(*args))
+
+
+@pytest.mark.parametrize("n_levels", [2, 3, 16, 17, 33])
+@pytest.mark.parametrize("n_feat", [1, 2, 8])
+def test_hash_encode_kernel_takes_any_number_of_levels(dev, n_levels, n_feat):
+    # a block takes 16 levels at once; fewer levels leave warps idle, more
+    # go in chunks: every (point, level, feature) written once, bit-identical
+    xyz = torch.from_numpy(ray_stream(1000, 22)).to(dev)
+    enc = HashGridEmbedder(n_levels=n_levels, n_feat_per_entry=n_feat, hashmap_size=12, side=2.0, base_res=4,
+                           max_res=max(8, 64 * n_levels), include_input=False)
+    gen = torch.Generator(device=dev).manual_seed(n_levels)
+    table = torch.rand((n_levels, 1 << 12, n_feat), generator=gen, device=dev) * 2 - 1
+    args = (xyz, table, enc.resolutions, enc.aabb_min, enc.aabb_len, "pair", True)
+    out = hash_encode(*args)
+    assert out.shape == (1000, n_levels * n_feat)
+    assert torch.equal(out, hash_encode_reference(*args))
+
+
+def test_hash_encode_kernel_at_the_recipe_scale(dev):
+    # 2^18 + 5 ray-ordered points (a ragged last block) at T = 2^19, as
+    # kernel E's scale test
+    xyz = torch.from_numpy(ray_stream((1 << 18) + 5, 23)).to(dev)
+    enc = HashGridEmbedder(n_levels=16, n_feat_per_entry=2, hashmap_size=19, side=2.0, include_input=False)
+    table = torch.rand((16, 1 << 19, 2), generator=torch.Generator(device=dev).manual_seed(4), device=dev) - 0.5
+    args = (xyz, table, enc.resolutions, enc.aabb_min, enc.aabb_len, "quad", True)
+    assert torch.equal(hash_encode(*args), hash_encode_reference(*args))
+
+
+def test_hash_encode_kernel_follows_the_table_in_place(dev):
+    # the kernel reads the table every call: after an in-place update (as
+    # the optimizer makes one a step) it gives the new table's encoding
+    xyz = torch.from_numpy(ray_stream(4096, 24)).to(dev)
+    enc = HashGridEmbedder(n_levels=16, n_feat_per_entry=2, hashmap_size=14, side=2.0, include_input=False,
+                           dtype="bfloat16").to(dev)
+    before = enc(xyz).clone()
+    with torch.no_grad():
+        enc.embeddings.add_(torch.randn_like(enc.embeddings))
+    after = enc(xyz)
+    args = (xyz, enc.embeddings.detach(), enc.resolutions, enc.aabb_min, enc.aabb_len, enc.variant, True)
+    assert torch.equal(after, hash_encode_reference(*args)) and not torch.equal(after, before)
+
+
+def test_hash_encode_binding_refuses_a_misaligned_table(dev):
+    # a float2 load a corner for F = 2 needs an 8-byte aligned table
+    from arcnerf_torch.ops import cuda_lib
+
+    xyz, res = torch.zeros((16, 3), device=dev), torch.tensor([2, 3], dtype=torch.int32, device=dev)
+    table = torch.zeros(2 * 16 * 2 + 1, device=dev)[1:].view(2, 16, 2)
+    with pytest.raises(ValueError, match="aligned to 8 bytes"):
+        cuda_lib.ops().hash_encode_fwd(xyz, table, res, 4, (0, 0, 0), (1, 1, 1), 0, True)
 
 
 def test_autograd_launches_the_kernels_never_the_plain_versions(dev, monkeypatch):

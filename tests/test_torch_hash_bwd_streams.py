@@ -152,13 +152,16 @@ def _trainer(tmp_path):
 
 
 def test_chip_smoke_captures_the_stream_of_one_training_step(tmp_path, monkeypatch):
-    # the capture wraps encoding.hash_encode_bwd for one step and restores
-    # it; what it holds is kernel E's input, so the reference on it is the
-    # step's table gradient
+    # the capture wraps encoding.hash_encode_bwd and ray_helper.segment_march_bwd
+    # for one step and restores them; what it holds is kernel E's and kernel
+    # F's input, so the references on it are the step's table gradient and
+    # compositing gradient
     from arcnerf_torch.models.base_modules import encoding
+    from arcnerf_torch.render import ray_helper
 
     trainer = _trainer(tmp_path)
     plain = encoding.hash_encode_bwd
+    plain_f = ray_helper.segment_march_bwd
 
     def counting(*args):
         # counts as the card's wrapper does: on the module's hash_encode_bwd
@@ -168,8 +171,9 @@ def test_chip_smoke_captures_the_stream_of_one_training_step(tmp_path, monkeypat
     counting.launches = 5
     monkeypatch.setattr(encoding, "hash_encode_bwd", counting)
     step = trainer.step
-    stream = chip_smoke.capture_hash_encode_bwd_stream(trainer)
+    stream = chip_smoke.capture_training_streams(trainer)
     assert encoding.hash_encode_bwd is counting and trainer.step == step + 1 and counting.launches == 6
+    assert ray_helper.segment_march_bwd is plain_f
     n_pts = stream["xyz"].shape[0]
     assert stream["shape"] == (N_LEVELS, 1 << 12, 2) and stream["variant"] == "quad"
     assert n_pts == 1 << 12 and stream["g"].shape == (n_pts, N_LEVELS * 2)
@@ -181,6 +185,19 @@ def test_chip_smoke_captures_the_stream_of_one_training_step(tmp_path, monkeypat
     grad = hash_encode_bwd(stream["xyz"], stream["g"], stream["shape"], stream["res"], stream["aabb_min"],
                            stream["aabb_len"], stream["variant"])
     assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    march = stream["march"]
+    n_rays, k_total = march["off"].shape[0], march["z"].shape[0]
+    assert march["sigma"].shape == (k_total,) and march["rgb"].shape == (k_total, 3) and k_total == n_pts
+    assert march["cnt"].shape == (n_rays,) and march["g_rgb"].shape == (n_rays, 3)
+    assert march["g_depth"].shape == march["g_mask"].shape == (n_rays,)
+    assert march["bkg"] is not None and march["bkg"].shape == (n_rays, 3)  # the recipe's random background
+    lengths = chip_smoke.segment_lengths(march["off"], march["cnt"], k_total)
+    assert int(lengths.sum()) == min(stream["n_valid"], k_total)
+    summary = chip_smoke.length_summary(lengths)
+    assert summary["rays"] == n_rays and summary["samples"] == int(lengths.sum()) and summary["max"] <= 1 << 12
+    d_sigma, d_rgb = plain_f(*(march[k] for k in ("sigma", "rgb", "z", "off", "cnt", "g_rgb", "g_depth", "g_mask",
+                                                  "add_inf_z", "bkg", "white_bkg")))
+    assert torch.isfinite(d_sigma).all() and torch.isfinite(d_rgb).all() and d_rgb.abs().sum() > 0
 
 
 @pytest.mark.parametrize("kind", STREAMS)
