@@ -246,9 +246,11 @@ int64_t require_march_inputs(const char* name, const Tensor& sigma, const Tensor
 
 std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma, const Tensor& rgb, const Tensor& z,
                                                              const Tensor& off, const Tensor& cnt, bool add_inf_z,
-                                                             const std::optional<Tensor>& bkg, bool white_bkg) {
+                                                             const std::optional<Tensor>& bkg, bool white_bkg,
+                                                             int64_t group) {
     const char* name = "segment_march";
     const int64_t n_rays = require_march_inputs(name, sigma, rgb, z, off, cnt, bkg);
+    TORCH_CHECK_VALUE(group == 32 || group == 8, name, ": kernel C takes groups of 32 or 8 lanes a ray, not ", group);
     c10::cuda::CUDAGuard guard(z.device());
     Tensor out_rgb = at::empty({n_rays, 3}, z.options());
     Tensor depth = at::empty({n_rays}, z.options()), mask = at::empty({n_rays}, z.options());
@@ -257,8 +259,9 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma
         check_status(name, arcnerf_segment_march_fwd(sigma.data_ptr(), rgb.data_ptr(), z.data_ptr(), off.data_ptr(),
                                                      cnt.data_ptr(), static_cast<int>(n_rays), z.numel(),
                                                      add_inf_z ? 1 : 0, bkg ? bkg->data_ptr() : nullptr,
-                                                     white_bkg ? 1 : 0, out_rgb.data_ptr(), depth.data_ptr(),
-                                                     mask.data_ptr(), trans_end.data_ptr(), stream_of(z)));
+                                                     white_bkg ? 1 : 0, static_cast<int>(group), out_rgb.data_ptr(),
+                                                     depth.data_ptr(), mask.data_ptr(), trans_end.data_ptr(),
+                                                     stream_of(z)));
     }
     return {out_rgb, depth, mask, trans_end};
 }
@@ -331,7 +334,9 @@ Tensor lane_gather(const Tensor& src, const Tensor& idx) {
     return out;
 }
 
-// out (T, W) f32 += g (N, W) f32 at the rows idx (N,) int32, in place.
+// out (T, W) f32 += g (N, W) f32 at the rows idx (N,) int32, in place; the
+// scratch of kernel I's partition route, where it takes that route, is
+// allocated here at the size the kernel's source gives.
 void scatter_add_rows(const Tensor& out, const Tensor& idx, const Tensor& g) {
     const char* name = "scatter_add_rows";
     require(name, out, ScalarType::Float, out);
@@ -349,8 +354,11 @@ void scatter_add_rows(const Tensor& out, const Tensor& idx, const Tensor& g) {
     }
     if (idx.size(0) > 0 && out.size(0) > 0) {
         c10::cuda::CUDAGuard guard(out.device());
+        const int64_t need = arcnerf_scatter_add_rows_scratch_bytes(out.size(0), static_cast<int>(w), idx.size(0));
+        Tensor scratch = need > 0 ? at::empty({need}, out.options().dtype(ScalarType::Byte)) : Tensor();
         check_status(name, arcnerf_scatter_add_rows(out.data_ptr(), out.size(0), static_cast<int>(w), idx.data_ptr(),
-                                                    g.data_ptr(), idx.size(0), stream_of(out)));
+                                                    g.data_ptr(), idx.size(0), need > 0 ? scratch.data_ptr() : nullptr,
+                                                    need, stream_of(out)));
     }
 }
 
@@ -388,7 +396,7 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
     m.def("hash_encode_bwd", &hash_encode_bwd, py::arg("xyz"), py::arg("g"), py::arg("res"), py::arg("n_levels"),
           py::arg("log2_table"), py::arg("n_feat"), py::arg("aabb_min"), py::arg("aabb_len"), py::arg("variant"));
     m.def("segment_march_fwd", &segment_march_fwd, py::arg("sigma"), py::arg("rgb"), py::arg("z"), py::arg("off"),
-          py::arg("cnt"), py::arg("add_inf_z"), py::arg("bkg"), py::arg("white_bkg"));
+          py::arg("cnt"), py::arg("add_inf_z"), py::arg("bkg"), py::arg("white_bkg"), py::arg("group") = 32);
     m.def("segment_march_bwd", &segment_march_bwd, py::arg("sigma"), py::arg("rgb"), py::arg("z"), py::arg("off"),
           py::arg("cnt"), py::arg("g_rgb"), py::arg("g_depth"), py::arg("g_mask"), py::arg("add_inf_z"),
           py::arg("bkg"), py::arg("white_bkg"));

@@ -30,7 +30,7 @@ int arcnerf_hash_encode_bwd(const void* xyz, long long n_pts, const void* g, int
                             void* stream);
 // C, segment_march.cu
 int arcnerf_segment_march_fwd(const void* sigma, const void* rgb, const void* z, const void* off, const void* cnt,
-                              int n_rays, long long k_total, int add_inf_z, const void* bkg, int white_bkg,
+                              int n_rays, long long k_total, int add_inf_z, const void* bkg, int white_bkg, int group,
                               void* out_rgb, void* out_depth, void* out_mask, void* out_trans_end, void* stream);
 // F, segment_march_bwd.cu
 int arcnerf_segment_march_bwd(const void* sigma, const void* rgb, const void* z, const void* off, const void* cnt,
@@ -45,7 +45,8 @@ int arcnerf_lane_gather(const void* src, long long m, long long w_src, const voi
                         long long n, void* out, void* stream);
 // I, scatter_add_rows.cu
 int arcnerf_scatter_add_rows(void* out, long long n_table, int w, const void* idx, const void* g, long long n,
-                             void* stream);
+                             void* scratch, long long scratch_bytes, void* stream);
+long long arcnerf_scatter_add_rows_scratch_bytes(long long n_table, int w, long long n);
 // J, update_rows.cu
 int arcnerf_build_update_rows(const void* lane0, const void* vals, long long k, const int* offs, int n_off, int n_feat,
                               void* out, void* stream);

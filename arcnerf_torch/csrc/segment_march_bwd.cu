@@ -47,34 +47,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kGroup = 32;  // lanes a ray
 
-// One sample of a chunk: lane `lane` of the group on stream row i (rows at
-// or past `end` are outside the segment and come out as alpha 0, o 1).
-struct Sample {
-    float z, s_raw, delta, ex, alpha, o;
-};
-
-template <int W>
-__device__ __forceinline__ Sample load_sample(const float* __restrict__ sigma, const float* __restrict__ z,
-                                              int64_t i, int64_t end, int add_inf_z, unsigned mask, int lane) {
-    Sample p;
-    const bool in = i < end;
-    p.z = in ? z[i] : 0.f;
-    float z_next = __shfl_down_sync(mask, p.z, 1, W);
-    if (lane == W - 1 && i + 1 < end) z_next = z[i + 1];
-    if (i + 1 < end) {
-        const float d = __fsub_rn(z_next, p.z);
-        p.delta = fabsf(d) < 1e-5f ? 0.f : d;
-    } else {
-        p.delta = add_inf_z ? 1e10f : 0.f;
-    }
-    p.s_raw = in ? sigma[i] : 0.f;
-    const float s = fminf(fmaxf(p.s_raw, 0.f), 1e10f);
-    p.ex = expf(__fmul_rn(-s, p.delta));
-    p.alpha = in ? __fsub_rn(1.f, p.ex) : 0.f;
-    p.o = in ? __fadd_rn(__fsub_rn(1.f, p.alpha), 1e-10f) : 1.f;
-    return p;
-}
-
 template <int W>
 __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
         const float* __restrict__ sigma, const float* __restrict__ rgb, const float* __restrict__ z,
@@ -95,10 +67,10 @@ __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
 
     // forward walk: T_i = carry x the product scan of the chunk's o
     float carry = 1.f, t = 1.f;
-    Sample p{};
+    seg_scan::Sample p{};
     for (int k = 0; k < n_chunks; ++k) {
         const int64_t i = start + static_cast<int64_t>(k) * W + lane;
-        p = load_sample<W>(sigma, z, i, end, add_inf_z, mask, lane);
+        p = seg_scan::load_sample<W>(sigma, z, i, end, add_inf_z, mask, lane);
         const float incl = seg_scan::product_scan<W>(mask, lane, p.o);
         const float excl = __shfl_up_sync(mask, incl, 1, W);
         t = lane == 0 ? carry : __fmul_rn(carry, excl);
@@ -121,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
         const int64_t i = base + lane;
         const bool in = i < end;
         if (k < n_chunks - 1) {  // the last chunk is still in registers
-            p = load_sample<W>(sigma, z, i, end, add_inf_z, mask, lane);
+            p = seg_scan::load_sample<W>(sigma, z, i, end, add_inf_z, mask, lane);
             t = d_sigma[i];
         }
         float G = 0.f;

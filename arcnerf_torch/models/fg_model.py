@@ -11,7 +11,7 @@ passed down from the trainer. The dense scatter-back path
 
 import torch
 
-from ..render.ray_helper import segment_march
+from ..render.ray_helper import march_group, segment_march
 from ..utils.cfgs import get_value_from_cfgs_field
 from .base_3d_model import Base3dModel
 from .base_modules.obj_bound import build_obj_bound
@@ -152,8 +152,10 @@ class FgModel(Base3dModel):
         noise_std = 0.0 if inference_only else float(self.get_ray_cfgs("noise_std") or 0.0)
         if noise_std > 0.0 and generator is not None:
             noise = torch.randn(sigma_c.shape, generator=generator, device=sigma_c.device) * noise_std
+        # kernel C's lanes a ray: the serving cap keeps every segment short
+        group = march_group(self.get_render_cfgs("eval_max_pts_per_ray") if inference_only else None)
         out = segment_march(sigma_c, radiance_c, z_sel, off, cnt, add_inf_z=self.get_ray_cfgs("add_inf_z"),
-                            white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise)
+                            white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise, group=group)
         out.pop("trans_end")
         return out
 

@@ -85,7 +85,9 @@ def scatter_add_rows(out, idx, g):
     """out (T, W) f32, idx (N,) int32 in [0, T), g (N, W) f32: adds every
     g[n] into out[idx[n]], repeats summed, IN PLACE (no copy of the table);
     returns ``out``. On CUDA, kernel I (f32 atomics, so the order of each
-    sum changes from run to run): W is 1 or a multiple of 4."""
+    sum changes from run to run): W is 1 or a multiple of 4; the kernel's
+    source picks the route (a large W = 1 case is a destination partition)
+    and the size of its scratch."""
     if out.is_cpu:
         return scatter_add_rows_reference(out, idx, g)
     cuda_lib.ops().scatter_add_rows(out, idx, g)

@@ -157,6 +157,20 @@ def perturb_interval_with_mask(vals, mask=None, generator=None, rand=None):
     return torch.minimum(torch.maximum(vals, vals[:, 0:1]), last_value)
 
 
+# Kernel C's lanes a ray (csrc/segment_march.cu): 32 where no per-ray cap
+# bounds a segment (training: a few rays carry ~70-180 samples), 8 under the
+# serving cap of 16 samples a ray
+TRAIN_GROUP, CAPPED_GROUP, CAPPED_MAX = 32, 8, 16
+
+
+def march_group(cap=None):
+    """Kernel C's group width for a stream whose rays hold at most ``cap``
+    samples (None or 0: no cap). A ray longer than its group walks more
+    chunks, so any width is right; the widths are the fastest measured
+    (``design_studies/march_designs.py``)."""
+    return CAPPED_GROUP if cap and int(cap) <= CAPPED_MAX else TRAIN_GROUP
+
+
 def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False):
     """Plain version of the compositing on the compacted stream.
 
@@ -247,10 +261,11 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
     return d_sigma, d_rgb
 
 
-def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False):
-    """Kernel C on CUDA tensors -> {rgb, depth, mask, trans_end}, or raises."""
+def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, group=TRAIN_GROUP):
+    """Kernel C on CUDA tensors -> {rgb, depth, mask, trans_end}, or raises;
+    ``group`` lanes a ray (32 or 8, see ``march_group``)."""
     rgb, depth, mask, trans_end = cuda_lib.ops().segment_march_fwd(sigma, radiance, z, off, cnt, bool(add_inf_z), bkg,
-                                                                   bool(white_bkg))
+                                                                   bool(white_bkg), int(group))
     if off.shape[0] > 0:
         segment_march.launches += 1
     return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
@@ -276,11 +291,11 @@ class _SegmentMarchFunction(torch.autograd.Function):
     card, their plain versions on the CPU. trans_end carries no gradient."""
 
     @staticmethod
-    def forward(ctx, sigma, radiance, z, off, cnt, bkg, add_inf_z, white_bkg):
+    def forward(ctx, sigma, radiance, z, off, cnt, bkg, add_inf_z, white_bkg, group):
         if z.is_cpu:
             out = segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
         else:
-            out = segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+            out = segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group)
         ctx.save_for_backward(sigma, radiance, z, off, cnt, bkg)
         ctx.flags = (add_inf_z, white_bkg)
         ctx.mark_non_differentiable(out["trans_end"])
@@ -296,10 +311,11 @@ class _SegmentMarchFunction(torch.autograd.Function):
         add_inf_z, white_bkg = ctx.flags
         d_sigma, d_rgb = segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg,
                                            white_bkg)
-        return d_sigma, d_rgb, None, None, None, None, None, None
+        return d_sigma, d_rgb, None, None, None, None, None, None, None
 
 
-def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False, bkg_color=None, noise=None):
+def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False, bkg_color=None, noise=None,
+                  group=TRAIN_GROUP):
     """Alpha compositing over a COMPACTED sample stream.
 
     sigma (K,), radiance (K, 3), z (K,) hold the stream (first sum(cnt)
@@ -310,9 +326,9 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
     1 - mask. ``noise`` (K,) is added to sigma first (the JAX ``noise``,
     pre-drawn).
 
-    A CPU tensor takes the plain versions; a CUDA tensor launches kernel C,
-    and kernel F in the backward, or raises. Returns rgb (N_rays, 3), depth,
-    mask, trans_end."""
+    A CPU tensor takes the plain versions; a CUDA tensor launches kernel C
+    on ``group`` lanes a ray (``march_group``), and kernel F in the
+    backward, or raises. Returns rgb (N_rays, 3), depth, mask, trans_end."""
     n_rays = off.shape[0]
     bkg = None
     if bkg_color is not None:
@@ -323,11 +339,11 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
         raise ValueError("segment_march: expected CPU or CUDA tensors, got {}".format(z.device))
     if torch.is_grad_enabled() and (sigma.requires_grad or radiance.requires_grad):
         rgb, depth, mask, trans_end = _SegmentMarchFunction.apply(sigma.contiguous(), radiance.contiguous(), z, off,
-                                                                  cnt, bkg, add_inf_z, white_bkg)
+                                                                  cnt, bkg, add_inf_z, white_bkg, group)
         return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
     if z.is_cpu:
         return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
-    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group)
 
 
 segment_march.launches = 0

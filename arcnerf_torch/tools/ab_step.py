@@ -11,7 +11,11 @@ first build their kernel libraries, all at once. Then each listed run, in
 order and in a process of its own started at its tree's root, times the host
 work a launch of each kernel's wrapper (this checkout's
 ``chip_smoke.launch_path`` on the tree's wrappers), renders the 800x800
-serving frame (``chip_smoke.serve``) and trains the recipe
+serving frame (this checkout's ``chip_smoke.serve``, which also captures
+the compacted stream of the chunk that crosses the spheres, on which the
+tree's kernel C is then held and timed from a CUDA graph), times the
+tree's kernel I at 2^25 -> 2^23, W=1, from a CUDA graph beside
+``index_add_`` (``chip_smoke.compare_scatter_w1``), and trains the recipe
 (``chip_smoke.train(profile=True)``: 400 steps with their gates, 100 timed
 steps, a profile of 4 more), then holds the tree's kernels B, C and F
 against their plain versions on the streams one more training step hands
@@ -48,9 +52,13 @@ chip_smoke.profile_steps = profiler.profile_steps
 torch.backends.cuda.matmul.allow_tf32 = False
 for row in profiler.launch_path(torch.device("cuda:0"), torch.Generator(device="cuda:0").manual_seed(0))[1]:
     print(row)
-os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
-os.makedirs(chip_smoke.WORK_DIR, exist_ok=True)
-chip_smoke.serve(torch.device("cuda:0"))
+for d in (chip_smoke.OUT_DIR, chip_smoke.WORK_DIR, profiler.OUT_DIR, profiler.WORK_DIR):
+    os.makedirs(d, exist_ok=True)
+_, serving = profiler.serve(torch.device("cuda:0"))
+for row in profiler.compare_serving_chunk(serving)[0]:
+    print(row)
+del serving
+print(profiler.compare_scatter_w1(torch.device("cuda:0"), torch.Generator(device="cuda:0").manual_seed(0)))
 chip_smoke.capture_hash_encode_bwd_stream = profiler.capture_training_streams  # the name in trees before it
 _, stream = chip_smoke.train(profile=True)
 for row in profiler.compare_hash_encode_stream(stream)[0] + profiler.compare_march_stream(stream["march"])[0]:
@@ -59,7 +67,8 @@ for row in profiler.compare_hash_encode_stream(stream)[0] + profiler.compare_mar
 # the lines of a run that the comparison reads
 KEYS = ("launch path", "render 800x800", "train ", "one step,", "held-out view", "steady steps", "profile of",
         "profile per step by kernel", "B hash_encode training stream", "compositing stream",
-        "C segment_march captured", "F segment_march_bwd captured")
+        "C segment_march captured", "C segment_march serving", "F segment_march_bwd captured",
+        "I scatter_add_rows W=1")
 
 
 def main(argv=None):

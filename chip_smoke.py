@@ -17,8 +17,11 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    index_add_). Kernel E runs on uniform points here and on the training
    stream after step 6, each also through its C entry point alone and on
    levels 0-1 and 2-15 apart; kernel B also runs on that stream's points
-   with the trained table, C and F on step 6's compositing stream. B's, C's
-   and F's rows quote the parent kernels' times from PERF.md (PARENT_MS).
+   with the trained table, C and F on step 6's compositing stream, and C on
+   the serving chunk of step 5. B's, C's, F's and I's rows quote the parent
+   kernels' times from PERF.md (PARENT_MS). Kernel I runs at the probes'
+   five shapes, each also replayed from a CUDA graph beside index_add_ in
+   one, and at kernel E's scale in place (compare_scatter_w1).
    Kernels A (both builds, inference and save_pre) and D are also run
    twice for bit-identical results and timed beside a
    bf16 chain of cuBLAS calls (A through its C entry point in a CUDA graph,
@@ -38,7 +41,10 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    from a seeded torch.Generator saved as a port checkpoint, occupancy of
    the scene's spheres at n_grid 128, per-ray cap 16). Checks the image,
    that kernels A-C launched in that run, and a 4096-ray crop against the
-   plain path on the CPU; then times 3 renders.
+   plain path on the CPU; then times 3 renders, the first of which also
+   captures the compacted stream kernel C receives for the 16384-ray chunk
+   that crosses the spheres (rays 311296-327679), on which C is held
+   against its plain version and timed from a CUDA graph.
 6. Training: ``arcnerf_torch.train`` runs the full-width recipe for 400
    steps (24 Synthetic views at 128x128, dynamic batch up to 32768 rays,
    occupancy updates every 16 steps with warmup below 256). Checks that the
@@ -58,7 +64,8 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    G-J's from the tools; G-J's times at the probes' largest shape; A's
    entry also holds its save_pre build, B's and E's their numbers on the
    training stream, C's and F's on the captured compositing stream (F's with
-   its segment lengths); every entry its wrapper's host_us and ctypes_us), the
+   its segment lengths), C's also on the serving chunk; every entry its
+   wrapper's host_us and ctypes_us), the
    card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -95,9 +102,11 @@ D_TOL, E_TOL, F_TOL = 1e-4, 1e-4, 1e-4
 I_TOL = 1e-5
 RGB_MAX, RGB_MEAN, DEPTH_MAX = 2e-2, 1e-3, 5e-2
 # the earlier kernels' ms as PERF.md records them (NVIDIA H100 80GB HBM3,
-# 700.00 W): B on the training stream from a CUDA graph, C and F on
-# march_stream through CUDA events
-PARENT_MS = {"B": 0.1364, "C": 0.0433, "F": 0.0340}
+# 700.00 W): B on the training stream, C on march_stream, on the captured
+# training stream and on the serving chunk, all from a CUDA graph; F on
+# march_stream through CUDA events; I at 2^25 -> 2^23, W=1, the mean of 20
+# calls
+PARENT_MS = {"B": 0.1364, "C": 0.0089, "C captured": 0.0361, "C serving": 0.0087, "F": 0.0340, "I": 0.7151}
 TRAIN_STEPS, STEADY_STEPS, PSNR_FLOOR = 400, 100, 20.0
 # one training step on the card vs the plain path on the CPU (same batch,
 # no draws): bf16 flips in the MLPs and f32 sums in another order (atomics)
@@ -335,24 +344,33 @@ def compare_hash_encode(dev, gen):
 
 
 def compare_segment_march(dev, gen):
-    from arcnerf_torch.render.ray_helper import segment_march, segment_march_reference
+    """Kernel C on march_stream (rays of at most 32 samples) at the training
+    width (32 lanes a ray), and from a CUDA graph also at the serving width
+    (``march_group(16)``, 8 lanes a ray), each held against the plain
+    version."""
+    from arcnerf_torch.render.ray_helper import TRAIN_GROUP, march_group, segment_march, segment_march_reference
 
     sigma, rgb, z, off, cnt = march_stream(dev, gen, C_RAYS, C_STREAM)
     bkg = torch.ones((C_RAYS, 3), device=dev)
-    out = segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg)
     ref = segment_march_reference(sigma, rgb, z, off, cnt, bkg=bkg)
     err = 0.0
-    for k in ("rgb", "depth", "mask", "trans_end"):
-        check_close("segment_march " + k, out[k], ref[k], C_TOL, C_TOL)
-        err = max(err, max_err(out[k], ref[k]))
+    for group in (TRAIN_GROUP, march_group(16)):
+        out = segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg, group=group)
+        for k in ("rgb", "depth", "mask", "trans_end"):
+            check_close("segment_march {} at {} lanes".format(k, group), out[k], ref[k], C_TOL, C_TOL)
+            err = max(err, max_err(out[k], ref[k]))
     ms = time_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg))
     plain = time_ms(lambda: segment_march_reference(sigma, rgb, z, off, cnt, bkg=bkg))
-    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-             "graph_ms": graph_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg))}
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "group": TRAIN_GROUP,
+             "graph_ms": graph_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg)),
+             "serving_group_graph_ms": graph_ms(lambda: segment_march(sigma, rgb, z, off, cnt, bkg_color=bkg,
+                                                                      group=march_group(16)))}
     suffix = add_bound(entry, [c_bound(cnt, C_RAYS)])
-    row = "C segment_march (16384 rays, 2^18 stream): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms (CUDA graph " \
-          "{:.4f} ms; parent {} ms, PERF.md), plain {:.4f} ms, {}".format(err, C_TOL, ms, entry["graph_ms"],
-                                                                         PARENT_MS["C"], plain, suffix)
+    row = "C segment_march (16384 rays of 0-32 samples, 2^18 stream, {} lanes a ray): max abs err {:.3e} (tol {} " \
+          "rel), kernel {:.4f} ms (CUDA graph {:.4f} ms, at {} lanes a ray {:.4f} ms; parent {} ms from a CUDA " \
+          "graph, PERF.md), plain {:.4f} ms, {}".format(TRAIN_GROUP, err, C_TOL, ms, entry["graph_ms"],
+                                                 march_group(16), entry["serving_group_graph_ms"], PARENT_MS["C"],
+                                                 plain, suffix)
     return [row], entry
 
 
@@ -714,7 +732,8 @@ def length_summary(n):
     q = torch.quantile(nf, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=n.device)).tolist()
     total = max(int(n.sum()), 1)
     return {"rays": n.numel(), "empty": int((n == 0).sum()), "samples": int(n.sum()), "mean": float(nf.mean()),
-            "p50": q[0], "p90": q[1], "p99": q[2], "max": int(n.max()), "above_16": int((n > 16).sum()),
+            "p50": q[0], "p90": q[1], "p99": q[2], "max": int(n.max()), "above_4": int((n > 4).sum()),
+            "above_8": int((n > 8).sum()), "above_16": int((n > 16).sum()),
             "above_32": int((n > 32).sum()), "above_128": int((n > 128).sum()),
             "samples_above_32": int(n[n > 32].sum()) / total}
 
@@ -722,7 +741,8 @@ def length_summary(n):
 def length_text(n):
     d = length_summary(n)
     return ("{rays} rays ({empty} empty), {samples} samples, mean {mean:.2f}, p50 {p50:.0f}, p90 {p90:.0f}, "
-            "p99 {p99:.0f}, max {max}; {above_16} rays above 16, {above_32} above 32 (holding {samples_above_32:.1%} "
+            "p99 {p99:.0f}, max {max}; {above_4} rays above 4, {above_8} above 8, {above_16} above 16, {above_32} "
+            "above 32 (holding {samples_above_32:.1%} "
             "of the samples), {above_128} above 128".format(**d))
 
 
@@ -751,8 +771,8 @@ def compare_march_stream(march):
          "plain_ms": time_ms(lambda: segment_march_reference(sigma, rgb, z, off, cnt, *flags), 3)}
     suffix = add_bound(c, [c_bound(lengths, n_rays)])
     rows.append("C segment_march captured stream ({} rays): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms (CUDA "
-                "graph; CUDA events {:.4f} ms), plain {:.4f} ms, {}".format(n_rays, err, C_TOL, c["ms"],
-                                                                           c["events_ms"], c["plain_ms"], suffix))
+                "graph; CUDA events {:.4f} ms; parent {} ms, PERF.md), plain {:.4f} ms, {}".format(
+                    n_rays, err, C_TOL, c["ms"], c["events_ms"], PARENT_MS["C captured"], c["plain_ms"], suffix))
     args = (sigma, rgb, z, off, cnt, march["g_rgb"], march["g_depth"], march["g_mask"], *flags)
     (d_sigma, d_rgb), (r_sigma, r_rgb) = segment_march_bwd(*args), segment_march_bwd_reference(*args)
     err = max(check_scaled("segment_march_bwd captured d_sigma", d_sigma, r_sigma, F_TOL),
@@ -765,6 +785,37 @@ def compare_march_stream(march):
                 "ms (CUDA graph; CUDA events {:.4f} ms), plain {:.4f} ms, {}".format(
                     n_rays, err, F_TOL, f["ms"], f["events_ms"], f["plain_ms"], suffix))
     return rows, {"C": c, "F": f, "lengths": length_summary(lengths)}
+
+
+def compare_serving_chunk(march):
+    """Kernel C on the compacted stream of one 16384-ray chunk of the
+    800x800 serving frame (``capture_chunk``), against its plain version
+    (C_TOL), timed from a CUDA graph and through CUDA events beside its
+    bound, with the chunk's segment-length distribution."""
+    from arcnerf_torch.render.ray_helper import segment_march_fwd, segment_march_reference
+
+    sigma, rgb, z, off, cnt = (march[k] for k in ("sigma", "rgb", "z", "off", "cnt"))
+    flags, kwargs = (march["add_inf_z"], march["bkg"], march["white_bkg"]), march["kwargs"]
+    n_rays, k_total = off.shape[0], z.shape[0]
+    lengths = segment_lengths(off, cnt, k_total)
+    out, ref = segment_march_fwd(sigma, rgb, z, off, cnt, *flags, **kwargs), segment_march_reference(
+        sigma, rgb, z, off, cnt, *flags)
+    err = 0.0
+    for k in ("rgb", "depth", "mask", "trans_end"):
+        check_close("segment_march serving " + k, out[k], ref[k], C_TOL, C_TOL)
+        err = max(err, max_err(out[k], ref[k]))
+    c = {"max_abs_err": err, "ms": graph_ms(lambda: segment_march_fwd(sigma, rgb, z, off, cnt, *flags, **kwargs)),
+         "events_ms": time_ms(lambda: segment_march_fwd(sigma, rgb, z, off, cnt, *flags, **kwargs)),
+         "plain_ms": time_ms(lambda: segment_march_reference(sigma, rgb, z, off, cnt, *flags), 3),
+         "lengths": length_summary(lengths)}
+    suffix = add_bound(c, [c_bound(lengths, n_rays)])
+    rows = ["C segment_march serving chunk {} ({} rays, {} rows, add_inf_z {}, bkg {}, white_bkg {}, {}): max abs err "
+            "{:.3e} (tol {} rel), kernel {:.4f} ms (CUDA graph; CUDA events {:.4f} ms; parent {} ms, PERF.md), plain "
+            "{:.4f} ms, {}; segments: {}".format(SERVE_CHUNK, n_rays, k_total, flags[0],
+                                                 "per ray" if flags[1] is not None else None, flags[2],
+                                                 kwargs or "no keywords", err, C_TOL, c["ms"], c["events_ms"],
+                                                 PARENT_MS["C serving"], c["plain_ms"], suffix, length_text(lengths))]
+    return rows, c
 
 
 def hold(key, label, run, plain, tol, cost, library=None, graph=False):
@@ -877,7 +928,28 @@ def compare_scatter_add_rows(dev, gen):
         cases.append((label, lambda i=idx, g=g, z=zeros: scatter_add_rows(z(), i, g),
                       lambda i=idx, g=g, z=zeros: scatter_add_rows_reference(z(), i, g), cost,
                       lambda i=idx, g=g, z=zeros: z().index_add_(0, i, g)))
-    return hold_all("I scatter_add_rows", cases, I_TOL)
+    rows, entry = hold_all("I scatter_add_rows", cases, I_TOL, graph=True)
+    rows[-1] += "; parent {} ms, PERF.md".format(PARENT_MS["I"])
+    return rows, entry
+
+
+def compare_scatter_w1(dev, gen):
+    """Kernel I at kernel E's scale, 2^25 updates into 2^23 entries, W=1,
+    added in place into one table, against its plain version and timed from
+    a CUDA graph beside index_add_ (``arcnerf_torch.tools.ab_step`` runs it
+    on a parent tree too). Returns the row."""
+    from arcnerf_torch.ops.gather_scatter import scatter_add_rows, scatter_add_rows_reference
+
+    n_table, n = 1 << 23, 1 << 25
+    idx = _index(gen, dev, n_table, (n,))
+    g = torch.randn((n, 1), generator=gen, device=dev)
+    out = scatter_add_rows(torch.zeros((n_table, 1), device=dev), idx, g)
+    err = check_scaled("I scatter_add_rows W=1", out, scatter_add_rows_reference(torch.zeros_like(out), idx, g), I_TOL)
+    ms, library = graph_ms(lambda: scatter_add_rows(out, idx, g)), graph_ms(lambda: out.index_add_(0, idx, g))
+    events, library_events = time_ms(lambda: scatter_add_rows(out, idx, g)), time_ms(lambda: out.index_add_(0, idx, g))
+    return "I scatter_add_rows W=1 2^25 -> 2^23 in place: max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} ms " \
+           "(CUDA graph; CUDA events {:.4f} ms; parent {} ms, PERF.md), index_add_ {:.4f} ms (CUDA graph; CUDA " \
+           "events {:.4f} ms)".format(err, I_TOL, ms, events, PARENT_MS["I"], library, library_events)
 
 
 def compare_update_rows(dev, gen):
@@ -940,6 +1012,9 @@ def launch_path(dev, gen):
     def ptr(t):
         return t.data_ptr
 
+    def since(name, n_args, *args):  # arguments a launcher gained later: none for a tree from before
+        return args if len(cuda_lib._SIGNATURES[name]) >= n_args else ()
+
     rows = 64
     x = torch.randn((rows, 32), generator=gen, **f32)
     ws = _chain([32, 64, 16], gen, dev)
@@ -975,7 +1050,7 @@ def launch_path(dev, gen):
                     lambda: cuda_lib.float3(lo), lambda: cuda_lib.float3(span), 0, 1, ptr(enc_out)), None),
         "C": (lambda: segment_march_fwd(sigma, rgb, z, off, cnt, bkg=bkg),
               entry("segment_march_fwd", ptr(sigma), ptr(rgb), ptr(z), ptr(off), ptr(cnt), rows, k, 0, ptr(bkg), 0,
-                    *[ptr(t) for t in march_out]), None),
+                    *since("arcnerf_segment_march_fwd", 16, 32), *[ptr(t) for t in march_out]), None),
         "D": (lambda: fused_mlp_bwd(x, g16, ws, pre, packed=packed),
               entry("fused_mlp_bwd", ptr(x), ptr(g16), rows, 32, 32, ptr(packed), 64, 1, 16, 16, ptr(pre), ptr(dx),
                     ptr(parts)), None),
@@ -990,7 +1065,8 @@ def launch_path(dev, gen):
         "H": (lambda: lane_gather(src, hidx), entry("lane_gather", ptr(src), 1, 2048, ptr(hidx), 0, 1024, ptr(hout)),
               ("gather", lambda: torch.gather(src, 1, hidx64))),
         "I": (lambda: scatter_add_rows(itab, iidx, ig),
-              entry("scatter_add_rows", ptr(itab), 2048, 128, ptr(iidx), ptr(ig), 1024),
+              entry("scatter_add_rows", ptr(itab), 2048, 128, ptr(iidx), ptr(ig), 1024,
+                    *since("arcnerf_scatter_add_rows", 9, None, 0)),
               ("index_add_", lambda: itab.index_add_(0, iidx, ig))),
         "J": (lambda: build_update_rows(lane0, vals, (0, 2), 2),
               entry("build_update_rows", ptr(lane0), ptr(vals), 1024, lambda: (ctypes.c_int * 2)(0, 2), 2, 2,
@@ -1110,7 +1186,7 @@ def serve(dev):
         raise AssertionError("the card's render disagrees with the plain path on the crop")
 
     engine = RenderEngine(model, cfgs, bound_state, dev)
-    engine.render_image(sample, bkg_color=bkg)
+    serving = capture_chunk(engine, sample, bkg)  # also the timed renders' warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1126,7 +1202,43 @@ def serve(dev):
         statistics.median(times) * 1e3, ", ".join("{:.2f}".format(t * 1e3) for t in times), peak, per_ray,
         engine._chunk_for_mesh()))
     os.remove(ckpt)
-    return launches
+    return launches, serving
+
+
+SERVE_CHUNK = 19  # the chunk of 16384 rays holding row 400 (rays 311296-327679), which crosses the spheres
+
+
+def capture_chunk(engine, sample, bkg, chunk=SERVE_CHUNK):
+    """One render of ``sample`` with ``ray_helper.segment_march_fwd``
+    wrapped: the compacted stream kernel C received for ray chunk ``chunk``
+    of the frame (sigma, rgb, z, off, cnt, the flags, the background and
+    any keyword arguments, such as the group width)."""
+    import inspect
+
+    from arcnerf_torch.render import ray_helper
+
+    inner, seen = ray_helper.segment_march_fwd, []
+    names = ("sigma", "radiance", "z", "off", "cnt", "add_inf_z", "bkg", "white_bkg")
+
+    def wrapper(*args, **kwargs):
+        if len(seen) == chunk:
+            bound = inspect.signature(inner).bind(*args, **kwargs)
+            bound.apply_defaults()
+            call = dict(bound.arguments)
+            got = {"rgb" if k == "radiance" else k: call.pop(k) for k in names}
+            seen.append(dict({k: v.clone() if torch.is_tensor(v) else v for k, v in got.items()}, kwargs=call))
+        else:
+            seen.append(None)
+        return inner(*args, **kwargs)
+
+    ray_helper.segment_march_fwd = wrapper
+    try:
+        engine.render_image(sample, bkg_color=bkg)
+    finally:
+        ray_helper.segment_march_fwd = inner
+    if len(seen) <= chunk:
+        raise AssertionError("the frame rendered in {} chunks, not more than {}".format(len(seen), chunk))
+    return seen[chunk]
 
 
 def train(profile=False):
@@ -1318,6 +1430,7 @@ def main():
         rows, stats[key] = fn(dev, gen)
         for row in rows:
             print(row)
+    print(compare_scatter_w1(dev, gen))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print("kernel comparisons A-J: {:.1f} s".format(time.perf_counter() - t0))
@@ -1333,7 +1446,12 @@ def main():
     tool_launches = run_tools()
     os.makedirs(OUT_DIR, exist_ok=True)
     os.makedirs(WORK_DIR, exist_ok=True)
-    serve(dev)
+    _, serving = serve(dev)
+    rows, stats["C"]["serving_chunk"] = compare_serving_chunk(serving)
+    for row in rows:
+        print(row)
+    stats["C"]["max_abs_err"] = max(stats["C"]["max_abs_err"], stats["C"]["serving_chunk"]["max_abs_err"])
+    del serving
     train_launches, e_stream = train(profile="--profile" in sys.argv[1:])
     launches = dict(train_launches, **{k: tool_launches[k] for k in "GHIJ"})
     rows, stats["E"]["training_stream"] = compare_hash_encode_bwd_stream(e_stream)

@@ -25,6 +25,7 @@ from arcnerf_torch.render.ray_helper import (segment_march, segment_march_bwd, s
                                              segment_march_reference)
 from arcnerf_torch.tools.hash_streams import one_cell_stream, pad_stream, ray_stream
 from arcnerf_torch.tools.march_streams import long_tail_lengths, ray_gradients, segment_stream
+from arcnerf_torch.tools.scatter_streams import partition_constants
 
 pytestmark = pytest.mark.cuda
 
@@ -673,3 +674,194 @@ def test_gather_scatter_wrappers_launch_the_kernels_never_the_plain_versions(dev
     torch.cuda.synchronize()
     after = [f.launches for f in (gs.row_gather, gs.lane_gather, gs.scatter_add_rows, gs.build_update_rows)]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+
+
+# ------------------------------------------- kernel C at each group width
+
+C_GROUPS = (32, 8)
+C_STREAMS = ("synthetic", "long_tail", "cap16", "clipped")
+C_FLAGS = [(a, white, bkg) for a in (False, True) for white, bkg in ((False, False), (True, False), (False, True))]
+
+
+def _c_args(kind, add_inf_z, white_bkg, bkg, dev):
+    """Kernel C's arguments on 4096 rays: 0-32 samples a ray; 0-512 (every
+    chunk boundary among them); the serving cap's 0-16, 40 % empty; or the
+    0-512 stream under a budget that clips one ray and empties the rest."""
+    n_rays = 4096
+    if kind == "cap16":
+        rng = np.random.default_rng(35)
+        lengths = np.where(rng.random(n_rays) < 0.4, 0, rng.integers(0, 17, size=n_rays))
+    else:
+        lengths = long_tail_lengths(n_rays, 33, max_len=32 if kind == "synthetic" else 512)
+    k_total = int(lengths.sum()) * 2 // 3 if kind == "clipped" else int(lengths.sum()) + 100
+    t = [torch.from_numpy(a).to(dev) for a in segment_stream(lengths, k_total, 34)]
+    b = torch.from_numpy(ray_gradients(n_rays, 36)[3]).to(dev)
+    return (*t, add_inf_z, b if bkg else None, white_bkg)
+
+
+@pytest.mark.parametrize("kind", C_STREAMS)
+@pytest.mark.parametrize("add_inf_z,white_bkg,bkg", C_FLAGS)
+@pytest.mark.parametrize("group", C_GROUPS)
+def test_segment_march_kernel_at_each_group_width(dev, kind, add_inf_z, white_bkg, bkg, group):
+    # rtol = atol = 1e-4 (chip_smoke.C_TOL): expf and the group's tree order
+    # in place of the plain version's sequential order; no atomics, so two
+    # calls agree bit for bit
+    args = _c_args(kind, add_inf_z, white_bkg, bkg, dev)
+    launches = segment_march.launches
+    out, again = ray_helper.segment_march_fwd(*args, group=group), ray_helper.segment_march_fwd(*args, group=group)
+    assert segment_march.launches == launches + 2
+    ref = segment_march_reference(*args)
+    for key in ("rgb", "depth", "mask", "trans_end"):
+        torch.testing.assert_close(out[key], ref[key], rtol=1e-4, atol=1e-4, msg=key)
+        assert torch.equal(out[key], again[key]), key
+
+
+def test_segment_march_passes_its_group_to_the_kernel(dev):
+    # the entry the serving path takes: segment_march(..., group=march_group(16))
+    sigma, rgb, z, off, cnt, *_ = _c_args("cap16", False, False, False, dev)
+    group = ray_helper.march_group(16)
+    out = segment_march(sigma, rgb, z, off, cnt, white_bkg=True, group=group)
+    ref = segment_march_reference(sigma, rgb, z, off, cnt, white_bkg=True)
+    for key in ("rgb", "depth", "mask", "trans_end"):
+        torch.testing.assert_close(out[key], ref[key], rtol=1e-4, atol=1e-4)
+    for other in (5, 16, 4):
+        with pytest.raises(ValueError, match="groups of 32 or 8"):
+            ray_helper.segment_march_fwd(sigma, rgb, z, off, cnt, group=other)
+
+
+# --------------------------------------------- kernel I's W = 1 routes
+
+# the route's constants, read from the kernel's source
+I_ROUTE = partition_constants()
+# (updates, table entries): the RED kernel's sizes, then the partition's
+# (tables whose last bucket is partial)
+I_SIZES = [(1 << 20, (1 << 18) + 1000), (1 << 22, (1 << 20) + 1000), (1 << 24, (1 << 23) + 1000),
+           (1 << 25, (1 << 23) + 1000)]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_bucket", "one_index", "bucket_boundary", "empty_buckets"])
+@pytest.mark.parametrize("n,n_table", I_SIZES)
+def test_scatter_add_rows_w1_on_index_sets(dev, kind, n, n_table):
+    # against the sums in float64: 1e-5 of the largest (chip_smoke.I_TOL)
+    # plus the growth of f32 rounding over the m updates of one entry in
+    # any order, 4 eps sqrt(m sum g^2) (2^25 updates into one entry round
+    # by ~3 in a sum of ~6000)
+    from arcnerf_torch.tools.scatter_streams import index_set, values
+
+    idx = torch.from_numpy(index_set(kind, n, n_table, 37, I_ROUTE["kLogBucket"])).to(dev)
+    g = torch.from_numpy(values(n, 38)).to(dev)
+    out = torch.ones((n_table, 1), device=dev)
+    launches = gs.scatter_add_rows.launches
+    assert gs.scatter_add_rows(out, idx, g) is out
+    assert gs.scatter_add_rows.launches == launches + 1
+    ref = torch.ones((n_table, 1), device=dev, dtype=torch.float64).index_add_(0, idx, g.double())
+    m = torch.zeros(n_table, device=dev, dtype=torch.float64).index_add_(0, idx, torch.ones_like(g[:, 0]).double())
+    s2 = torch.zeros(n_table, device=dev, dtype=torch.float64).index_add_(0, idx, g[:, 0].double() ** 2)
+    tol = 1e-5 * float(ref.abs().max()) + 4 * float(torch.finfo(torch.float32).eps) * float((m * s2).sqrt().max())
+    assert torch.isfinite(out).all() and float((out.double() - ref).abs().max()) <= tol
+    untouched = m == 0
+    assert torch.all(out[untouched] == 1)
+
+
+def _scratch_bytes(n_table, w, n):
+    import ctypes
+
+    from arcnerf_torch.ops import cuda_lib
+
+    fn = cuda_lib.lib().arcnerf_scatter_add_rows_scratch_bytes
+    fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong
+    return fn(n_table, w, n)
+
+
+def _route_cases():
+    lo, t = I_ROUTE["kPartitionMinUpdates"], I_ROUTE["kPartitionMinTable"]
+    b = I_ROUTE["kMaxBuckets"] << I_ROUTE["kLogBucket"]
+    # (n_table, n, the partition expected)
+    return [(t, lo - 1, False), (t, lo, True), (t - 1, lo, False), (b, lo, True), (b + 1, lo, False)]
+
+
+@pytest.mark.parametrize("n_table,n,partition", _route_cases())
+def test_scatter_add_rows_routes_around_the_threshold(dev, n_table, n, partition):
+    assert (_scratch_bytes(n_table, 1, n) > 0) == partition
+    gen = torch.Generator(device=dev).manual_seed(39)
+    idx = torch.randint(0, n_table, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn((n, 1), generator=gen, device=dev)
+    out = gs.scatter_add_rows(torch.zeros((n_table, 1), device=dev), idx, g)
+    _scaled_close(out, gs.scatter_add_rows_reference(torch.zeros((n_table, 1), device=dev), idx, g), 1e-5)
+
+
+def test_scatter_add_rows_partition_needs_its_scratch(dev):
+    # the binding allocates the scratch at the source's size; the C entry
+    # point refuses none or too little, and takes exactly that much
+    from arcnerf_torch.ops import cuda_lib
+
+    n, n_table = I_ROUTE["kPartitionMinUpdates"], I_ROUTE["kPartitionMinTable"]
+    assert _scratch_bytes(n_table, 4, n) == 0 and _scratch_bytes(n_table, 1, n - 1) == 0
+    idx, g = torch.zeros(n, dtype=torch.int32, device=dev), torch.ones((n, 1), device=dev)
+    out = torch.zeros((n_table, 1), device=dev)
+    need = _scratch_bytes(n_table, 1, n)
+    entry = cuda_lib.lib().arcnerf_scatter_add_rows
+    stream = cuda_lib.stream_handle(dev)
+    for scratch in (None, torch.empty(need - 1, dtype=torch.uint8, device=dev)):
+        ptr, size = (None, 0) if scratch is None else (scratch.data_ptr(), scratch.numel())
+        assert entry(out.data_ptr(), n_table, 1, idx.data_ptr(), g.data_ptr(), n, ptr, size, stream) == \
+            cuda_lib.BAD_ARGUMENT
+    scratch = torch.empty(need, dtype=torch.uint8, device=dev)
+    cuda_lib.check(entry(out.data_ptr(), n_table, 1, idx.data_ptr(), g.data_ptr(), n, scratch.data_ptr(), need,
+                         stream), "scatter_add_rows")
+    gs.scatter_add_rows(out, idx, g)
+    torch.cuda.synchronize()
+    assert float(out[0, 0]) == 2 * n and float(out.sum()) == 2 * n
+
+
+@pytest.mark.parametrize("kind", ["uniform", "bucket_boundary"])
+def test_scatter_add_rows_partition_repeats_over_dirty_shared_memory(dev, kind):
+    # the largest table the route takes (2048 buckets: two a thread in each
+    # block's scan), every call after a kernel that fills the shared memory
+    # of every SM with 1.0f: a slot read before it was written would add
+    # 1.0 or lose an update; 12 calls, each within the bound of the test above
+    from arcnerf_torch.ops import cuda_lib
+    from arcnerf_torch.tools.scatter_streams import index_set, values
+    from design_studies import scatter_designs
+
+    n_table, n = I_ROUTE["kMaxBuckets"] << I_ROUTE["kLogBucket"], 1 << 25
+    assert _scratch_bytes(n_table, 1, n) > 0
+    dirty = scatter_designs.load().design_dirty_shared
+    idx = torch.from_numpy(index_set(kind, n, n_table, 41, I_ROUTE["kLogBucket"])).to(dev)
+    g = torch.from_numpy(values(n, 42)).to(dev)
+    ref = torch.zeros((n_table, 1), device=dev, dtype=torch.float64).index_add_(0, idx, g.double())
+    m = torch.zeros(n_table, device=dev, dtype=torch.float64).index_add_(0, idx, torch.ones_like(g[:, 0]).double())
+    s2 = torch.zeros(n_table, device=dev, dtype=torch.float64).index_add_(0, idx, g[:, 0].double() ** 2)
+    tol = 1e-5 * float(ref.abs().max()) + 4 * float(torch.finfo(torch.float32).eps) * float((m * s2).sqrt().max())
+    out = torch.empty((n_table, 1), device=dev)
+    for _ in range(12):
+        out.zero_()
+        assert dirty(1.0, cuda_lib.stream_handle(dev)) == 0
+        gs.scatter_add_rows(out, idx, g)
+        torch.cuda.synchronize()
+        assert float((out.double() - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n_table,n", [(1 << 23, 1 << 24), (64 ** 3, 1 << 18)])
+def test_scatter_add_rows_replays_from_a_cuda_graph(dev, n_table, n):
+    # both W = 1 routes captured once (the partition's scratch from the
+    # graph's pool), replayed on new indices and values written in place
+    gen = torch.Generator(device=dev).manual_seed(40)
+    idx = torch.randint(0, n_table, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn((n, 1), generator=gen, device=dev)
+    out = torch.zeros((n_table, 1), device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gs.scatter_add_rows(out, idx, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gs.scatter_add_rows(out, idx, g)
+    for _ in range(2):
+        idx.copy_(torch.randint(0, n_table, (n,), generator=gen, device=dev, dtype=torch.int32))
+        g.copy_(torch.randn((n, 1), generator=gen, device=dev))
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _scaled_close(out, gs.scatter_add_rows_reference(torch.zeros((n_table, 1), device=dev), idx, g), 1e-5)

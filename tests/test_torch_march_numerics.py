@@ -30,7 +30,7 @@ import jax.numpy as jnp
 
 from arcnerf_tpu.render.ray_helper import segment_march as jax_segment_march
 from arcnerf_torch.models.base_modules.encoding import HashGridEmbedder, _corners_and_weights, hash_encode_reference
-from arcnerf_torch.render.ray_helper import segment_march_bwd_reference
+from arcnerf_torch.render.ray_helper import segment_march_bwd_reference, segment_march_reference
 from arcnerf_torch.tools.hash_streams import one_cell_stream, pad_stream, ray_stream
 from arcnerf_torch.tools.march_streams import BOUNDARY_LENGTHS, long_tail_lengths, ray_gradients, segment_stream
 
@@ -377,3 +377,160 @@ def test_design_studies_run_on_the_card_only(study, names):
     with pytest.raises(RuntimeError, match="card only"):
         module.main([])
     assert set(re.findall(r'extern "C" int (design_\w+)\(', module.SOURCE.read_text())) == names
+
+
+# ------------------------------------------------------------ kernel C
+
+C_GROUPS = tuple(sorted((int(w) for w in re.findall(r"case (\d+): launch<", (CSRC / "segment_march.cu").read_text())),
+                        reverse=True))
+
+
+def _group_sum(v):
+    """seg_scan::group_sum over the last axis: butterfly steps d = W/2 .. 1,
+    lane i adding lane i ^ d; returns lane 0's sum."""
+    lane, w = torch.arange(v.shape[-1]), v.shape[-1]
+    d = w // 2
+    while d >= 1:
+        v = v + v[..., lane ^ d]
+        d //= 2
+    return v[..., 0]
+
+
+def model_segment_march_fwd(sigma, rgb, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, w=32):
+    """Kernel C's order of operations in f32, all rays in lockstep: chunk k
+    of every ray holds its samples k w .. k w + w - 1 on lanes 0..w-1; T is
+    the chunk's product scan times the carry, each lane sums its own
+    samples' w, w z and w rgb over the chunks, and the group adds the lanes'
+    sums at the end."""
+    k_total, n_rays = sigma.shape[0], off.shape[0]
+    start = off.clamp_max(k_total)
+    end = (off + cnt).clamp_max(k_total)
+    n_chunks = torch.where(end > start, (end - start + w - 1) // w, 0)
+    lanes = torch.arange(w)
+    carry = torch.ones(n_rays)
+    sums = torch.zeros(5, n_rays, w)  # w, w z, w r, w g, w b a lane
+    for k in range(int(n_chunks.max()) if n_rays else 0):
+        active = k < n_chunks
+        i = start[:, None] + k * w + lanes
+        inn = (i < end[:, None]) & active[:, None]
+        ic = i.clamp(0, k_total - 1)
+        zi = torch.where(inn, z[ic], 0.0)
+        z_next = _shift_down(zi, 1)
+        has_next = (i + 1 < end[:, None]) & active[:, None]
+        z_next[:, -1] = torch.where(has_next[:, -1], z[(i[:, -1] + 1).clamp_max(k_total - 1)], z_next[:, -1])
+        d = z_next - zi
+        delta = torch.where(has_next, torch.where(d.abs() < 1e-5, 0.0, d), 1e10 if add_inf_z else 0.0)
+        s = torch.where(inn, sigma[ic], 0.0).clamp(0.0, 1e10)
+        alpha = torch.where(inn, 1.0 - torch.exp(-s * delta), 0.0)
+        o = torch.where(inn, (1.0 - alpha) + 1e-10, 1.0)
+        incl = product_scan(o)
+        t = torch.where(lanes == 0, carry[:, None], carry[:, None] * _shift_up(incl, 1))
+        wt = t * alpha
+        c = rgb[ic]
+        terms = torch.stack([wt, wt * zi, wt * c[..., 0], wt * c[..., 1], wt * c[..., 2]])
+        sums = torch.where(inn, sums + terms, sums)
+        carry = torch.where(active, carry * incl[:, -1], carry)
+    mask, depth, r, g, b = _group_sum(sums)
+    trans = torch.where(cnt <= 0, 1.0, carry)
+    out = torch.stack([r, g, b], -1)
+    if bkg is not None:
+        out = out + trans[:, None] * bkg
+    elif white_bkg:
+        out = out + (1.0 - mask)[:, None]
+    return {"rgb": out, "depth": depth, "mask": mask, "trans_end": trans}
+
+
+def _c_stream(kind):
+    """Kernel C's streams: segments of 0-512 samples (every chunk boundary
+    and empty rays among them), a budget that clips one ray and empties the
+    rest, or the serving cap's 0-16 samples (40 % of rays empty), with a
+    background a ray."""
+    if kind == "cap16":
+        rng = np.random.default_rng(50)
+        lengths = rng.integers(0, 17, size=600)
+        lengths[rng.random(600) < 0.4] = 0
+        lengths[:6] = (0, 1, 4, 5, 8, 16)
+    else:
+        lengths = long_tail_lengths(512, 40)
+    k_total = int(lengths.sum()) * 3 // 5 if kind == "clipped" else int(lengths.sum()) + 37
+    sigma, rgb, z, off, cnt = segment_stream(lengths, k_total, 51)
+    bkg = ray_gradients(len(lengths), 52)[3]
+    return sigma, rgb, z, off, cnt, bkg
+
+
+# every add_inf_z case under no background, white_bkg and a background a ray
+C_FLAGS = [(a, white, use_bkg) for a in (False, True) for white, use_bkg in ((False, False), (True, False),
+                                                                             (False, True))]
+
+
+def _c_args(stream, add_inf_z, white_bkg, use_bkg, dtype=torch.float32):
+    sigma, rgb, z, off, cnt, bkg = stream
+    f = [torch.from_numpy(a).to(dtype) for a in (sigma, rgb, z)]
+    return (*f, torch.from_numpy(off), torch.from_numpy(cnt), add_inf_z,
+            torch.from_numpy(bkg).to(dtype) if use_bkg else None, white_bkg)
+
+
+def test_kernel_c_takes_the_groups_the_wrapper_picks():
+    from arcnerf_torch.render.ray_helper import CAPPED_GROUP, TRAIN_GROUP, march_group
+
+    # the kernel ships the two widths the package's callers take
+    assert C_GROUPS == (32, 8)
+    assert TRAIN_GROUP == 32 and CAPPED_GROUP == 8
+    assert march_group(None) == march_group(0) == march_group(512) == march_group(17) == TRAIN_GROUP
+    assert march_group(32) == TRAIN_GROUP and march_group(16) == march_group(4) == CAPPED_GROUP
+    text = (CSRC / "seg_scan.cuh").read_text()
+    assert "struct Sample" in text and "finish_sample" in text  # one definition of a sample for C and F
+    assert "seg_scan::load_sample<W>(" in (CSRC / "segment_march_bwd.cu").read_text()
+    assert "seg_scan::finish_sample<W>(" in (CSRC / "segment_march.cu").read_text()
+    for name in ("segment_march.cu", "segment_march_bwd.cu"):
+        assert "struct Sample" not in (CSRC / name).read_text(), name
+
+
+def test_the_cap16_stream_holds_short_and_empty_rays():
+    *_, off, cnt, _ = _c_stream("cap16")
+    assert cnt.max() == 16 and (cnt == 0).mean() > 0.3 and {1, 4, 5, 8} <= set(cnt.tolist())
+
+
+@pytest.mark.parametrize("kind", ["long_tail", "clipped", "cap16"])
+@pytest.mark.parametrize("add_inf_z,white_bkg,use_bkg", C_FLAGS)
+@pytest.mark.parametrize("w", [32, 16, 8, 4])
+def test_model_of_kernel_c_matches_the_plain_version(kind, add_inf_z, white_bkg, use_bkg, w):
+    # the model in f32 against the plain version in float64: atol = rtol =
+    # 1e-5, a few f32 roundings a sample in tree order (C_TOL on the card,
+    # where expf differs from the CPU's exp by ulps, is 1e-4); the plain
+    # version in f32 within the same bound
+    stream = _c_stream(kind)
+    got = model_segment_march_fwd(*_c_args(stream, add_inf_z, white_bkg, use_bkg), w=w)
+    exact = segment_march_reference(*_c_args(stream, add_inf_z, white_bkg, use_bkg, torch.float64))
+    plain = segment_march_reference(*_c_args(stream, add_inf_z, white_bkg, use_bkg))
+    for k in ("rgb", "depth", "mask", "trans_end"):
+        torch.testing.assert_close(got[k].double(), exact[k], atol=1e-5, rtol=1e-5, msg=k)
+        torch.testing.assert_close(plain[k].double(), exact[k], atol=1e-5, rtol=1e-5, msg=k)
+    n = np.minimum(stream[3] + stream[4], stream[0].shape[0]) - np.minimum(stream[3], stream[0].shape[0])
+    assert (got["mask"].numpy()[n == 0] == 0).all() and (got["trans_end"].numpy()[n == 0] == 1).all()
+    assert float(got["mask"].max()) > 0.5
+
+
+@pytest.mark.parametrize("kind", ["long_tail", "clipped", "cap16"])
+@pytest.mark.parametrize("add_inf_z,white_bkg,use_bkg", C_FLAGS)
+def test_model_of_kernel_c_matches_jax(kind, add_inf_z, white_bkg, use_bkg):
+    # against the JAX segment_march (padding rows on ray 0, as the
+    # compaction leaves them) at 32, 16 and 8 lanes: atol 1e-5 plus two f32
+    # ulps of the stream's running total, since JAX takes each ray's sum as
+    # a difference of one stream-wide f32 cumsum (tests/test_torch_render.py)
+    sigma, rgb, z, off, cnt, bkg = stream = _c_stream(kind)
+    n_rays, k_total = off.shape[0], sigma.shape[0]
+    ray_id = np.zeros(k_total, np.int32)
+    ray_id[:int(cnt.sum())] = np.repeat(np.arange(n_rays), cnt)
+    march = jax.jit(jax_segment_march, static_argnames=("n_rays", "add_inf_z", "white_bkg"))
+    want = march(jnp.asarray(sigma), jnp.asarray(rgb), jnp.asarray(z), jnp.asarray(ray_id), jnp.asarray(off),
+                 jnp.asarray(cnt), n_rays=n_rays, add_inf_z=add_inf_z, white_bkg=white_bkg,
+                 bkg_color=jnp.asarray(bkg) if use_bkg else None)
+    for w in (32, 16, 8):
+        got = model_segment_march_fwd(*_c_args(stream, add_inf_z, white_bkg, use_bkg), w=w)
+        for k in ("rgb", "depth", "mask", "trans_end"):
+            total = 0.0 if k == "trans_end" else float(np.abs(got[k].numpy()).sum())
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       atol=1e-5 + 2 * np.finfo(np.float32).eps * total, rtol=0,
+                                       err_msg="{} at {} lanes".format(k, w))
+
