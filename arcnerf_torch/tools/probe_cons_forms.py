@@ -9,13 +9,20 @@ lane-packed table. The JAX probe timed four ways to build the rows; here:
      lane0 + off + f, val, 0)`` terms (the XLA form ``build_A``)
   B  the same with d = lanes - lane0 computed once (``build_B``)
   C  select-free: (d == off + f) * val products summed (``build_C``)
-  P  kernel J, one warp per row, each row written once (``build_P``)
+  P  kernel J (``build_P``): each block reads its rows' inputs into shared
+     memory first, then writes every row once
 
-for the pair geometry (K = 2^20 rows, offsets (0, 2)) and the quad geometry
-(K = 2^19, offsets (0, 2, 62, 64)), F = 2, 11 levels per timed call. Each
-form is timed alone ("cons") and with the scatter tail that adds the rows
-into a (16384, 128) table (``+scatter``): plain ``index_add_`` after A, B
-and C, kernel I after P. Every form must equal A bit for bit on the first
+Kernel J's yardstick, one PyTorch call of the same function
+(``scatter_add_index`` and ``build_scatter_add``: ``torch.zeros`` then
+``scatter_add_``), is shared with ``chip_smoke.py`` and the design study;
+it equals A only where a row's term lanes are distinct and in [0, 128).
+
+The forms run for the pair geometry (K = 2^20 rows, offsets (0, 2)) and
+the quad geometry (K = 2^19, offsets (0, 2, 62, 64)), F = 2, 11 levels per
+timed call. Each form is timed alone ("cons", with a ``.sum()`` of each
+level's rows) and with the scatter tail that adds the rows into a
+(16384, 128) table (``+scatter``): plain ``index_add_`` after A, B and C,
+kernel I after P. Every form must equal A bit for bit on the first
 level, and kernel I's tail must agree with ``index_add_`` within 1e-5 x
 max|ref|; ``main`` raises after printing if one does not.
 
@@ -40,6 +47,21 @@ REPS = 4
 
 def _lane_offsets(lane0):
     return torch.arange(LANES, dtype=lane0.dtype, device=lane0.device)[None, :] - lane0[:, None]
+
+
+def scatter_add_index(lane0, offs, n_feat):
+    """(K, len(offs) * n_feat) int64: the lane of each row's term i * n_feat
+    + f, lane0[k] + offs[i] + f, as ``scatter_add_`` takes it."""
+    terms = torch.tensor([off + f for off in offs for f in range(n_feat)], dtype=torch.int64, device=lane0.device)
+    return lane0.long()[:, None] + terms[None, :]
+
+
+def build_scatter_add(idx, vals):
+    """Kernel J's yardstick: (K, 128) f32 rows holding each value at its lane
+    ``idx`` (from ``scatter_add_index``), by ``torch.zeros`` and one
+    ``scatter_add_``. Equals ``build_update_rows_reference`` when each row's
+    lanes are distinct and in [0, 128); the port never calls it."""
+    return torch.zeros((idx.shape[0], LANES), dtype=vals.dtype, device=vals.device).scatter_add_(1, idx, vals)
 
 
 def build_b(lane0, vals, offs, n_feat):

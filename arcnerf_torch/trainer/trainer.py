@@ -43,11 +43,11 @@ from .pipeline import Pipeline
 
 # (config path, value that is not ported, ROADMAP item) checked at init
 _UNPORTED = (
-    (("progress", "scan_steps"), lambda v: int(v) > 1, "item 1"),
-    (("dist", "model_parallel"), lambda v: int(v) > 1, "item 5"),
+    (("progress", "scan_steps"), lambda v: int(v) > 1, "item 2"),
+    (("dist", "model_parallel"), lambda v: int(v) > 1, "item 7"),
     (("optim", "clip_warmup"), lambda v: int(v) > 0, "item 4"),
     (("dataset", "train", "augmentation"), lambda v: v is not None, "item 4"),
-    (("viewer",), lambda v: bool(v), "item 3"),
+    (("viewer",), lambda v: bool(v), "item 6"),
 )
 
 

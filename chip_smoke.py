@@ -10,18 +10,20 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    link timed apart).
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths, and times both (CUDA events, mean of 20
-   calls; G and H and their library calls also replayed from a CUDA
-   graph), beside the kernel's bound (bytes over 3.35 TB/s or operations over the peak rate,
-   whichever is larger) and, for E and G-I, one PyTorch call of the same
-   function (index_add_ of E's precomputed updates, index_select, gather,
-   index_add_). Kernel E runs on uniform points here and on the training
-   stream after step 6, each also through its C entry point alone and on
-   levels 0-1 and 2-15 apart; kernel B also runs on that stream's points
-   with the trained table, C and F on step 6's compositing stream, and C on
-   the serving chunk of step 5. B's, C's, F's and I's rows quote the parent
-   kernels' times from PERF.md (PARENT_MS). Kernel I runs at the probes'
-   five shapes, each also replayed from a CUDA graph beside index_add_ in
-   one, and at kernel E's scale in place (compare_scatter_w1).
+   calls; G-J and their library calls also replayed from a CUDA graph),
+   beside the kernel's bound (bytes over 3.35 TB/s or operations over the
+   peak rate, whichever is larger) and, for E and G-J, one PyTorch call of
+   the same function (index_add_ of E's precomputed updates, index_select,
+   gather, index_add_, torch.zeros + scatter_add_). Kernel E runs on
+   uniform points here and on the training stream after step 6, each also
+   through its C entry point alone and on levels 0-1 and 2-15 apart; kernel
+   B also runs on that stream's points with the trained table, C and F on
+   step 6's compositing stream, and C on the serving chunk of step 5. B's,
+   C's, F's, I's and J's rows quote the parent kernels' times from PERF.md
+   (PARENT_MS). Kernel I runs at the probes' five shapes, each also
+   replayed from a CUDA graph beside index_add_ in one, and at kernel E's
+   scale in place (compare_scatter_w1); kernel J at the probe's quad and
+   pair geometries.
    Kernels A (both builds, inference and save_pre) and D are also run
    twice for bit-identical results and timed beside a
    bf16 chain of cuBLAS calls (A through its C entry point in a CUDA graph,
@@ -61,11 +63,11 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    compositing stream (its segment-length distribution printed), each held
    against its plain version and timed from a CUDA graph beside its bound.
 7. Prints the kernel table as JSON (A-F's launches from the training run,
-   G-J's from the tools; G-J's times at the probes' largest shape; A's
-   entry also holds its save_pre build, B's and E's their numbers on the
-   training stream, C's and F's on the captured compositing stream (F's with
-   its segment lengths), C's also on the serving chunk; every entry its
-   wrapper's host_us and ctypes_us), the
+   G-J's from the tools; G-J's times at the probes' largest shape, J's
+   also at quad's; A's entry also holds its save_pre build, B's and E's
+   their numbers on the training stream, C's and F's on the captured
+   compositing stream (F's with its segment lengths), C's also on the
+   serving chunk; every entry its wrapper's host_us and ctypes_us), the
    card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -105,8 +107,10 @@ RGB_MAX, RGB_MEAN, DEPTH_MAX = 2e-2, 1e-3, 5e-2
 # 700.00 W): B on the training stream, C on march_stream, on the captured
 # training stream and on the serving chunk, all from a CUDA graph; F on
 # march_stream through CUDA events; I at 2^25 -> 2^23, W=1, the mean of 20
-# calls
-PARENT_MS = {"B": 0.1364, "C": 0.0089, "C captured": 0.0361, "C serving": 0.0087, "F": 0.0340, "I": 0.7151}
+# calls; J (the parent: a warp a row) at the probe's quad and pair
+# geometries from a CUDA graph, re-timed before its redesign
+PARENT_MS = {"B": 0.1364, "C": 0.0089, "C captured": 0.0361, "C serving": 0.0087, "F": 0.0340, "I": 0.7151,
+             "J quad": 0.2042, "J pair": 0.2507}
 TRAIN_STEPS, STEADY_STEPS, PSNR_FLOOR = 400, 100, 20.0
 # one training step on the card vs the plain path on the CPU (same batch,
 # no draws): bf16 flips in the MLPs and f32 sums in another order (atomics)
@@ -953,18 +957,31 @@ def compare_scatter_w1(dev, gen):
 
 
 def compare_update_rows(dev, gen):
+    """Kernel J at the probe's two geometries, bit-identical to its plain
+    version, timed both ways beside its ``scatter_add_`` yardstick (its index
+    made outside the timed call) and the parent's time. The entry carries
+    pair's numbers (the larger) and quad's under "quad"."""
     from arcnerf_torch.ops.gather_scatter import LANES, build_update_rows, build_update_rows_reference
+    from arcnerf_torch.tools.probe_cons_forms import build_scatter_add, scatter_add_index
 
-    cases = []
-    for label, k, offs in (("quad K=2^19, offs (0, 2, 62, 64), F=2", 1 << 19, (0, 2, 62, 64)),
-                           ("pair K=2^20, offs (0, 2), F=2", 1 << 20, (0, 2))):
+    rows, entries = [], {}
+    for key, label, k, offs in (("quad", "quad K=2^19, offs (0, 2, 62, 64), F=2", 1 << 19, (0, 2, 62, 64)),
+                                ("pair", "pair K=2^20, offs (0, 2), F=2", 1 << 20, (0, 2))):
         lane0 = _index(gen, dev, 60, (k,))
         vals = torch.rand((k, len(offs) * 2), generator=gen, device=dev)
+        idx = scatter_add_index(lane0, offs, 2)
+        if not torch.equal(build_scatter_add(idx, vals), build_update_rows_reference(lane0, vals, offs, 2)):
+            raise AssertionError("J {}: the scatter_add_ yardstick differs from the plain version".format(key))
         # lane0 and the values in, (K, 128) f32 rows out
         cost = (k * 4 + vals.numel() * 4 + k * LANES * 4, vals.numel(), F32_FLOP_S)
-        cases.append((label, lambda l=lane0, v=vals, o=offs: build_update_rows(l, v, o, 2),
-                      lambda l=lane0, v=vals, o=offs: build_update_rows_reference(l, v, o, 2), cost))
-    return hold_all("J build_update_rows", cases, 0)
+        row, entries[key] = hold("J build_update_rows", label, lambda: build_update_rows(lane0, vals, offs, 2),
+                                 lambda: build_update_rows_reference(lane0, vals, offs, 2), 0, cost,
+                                 library=lambda: build_scatter_add(idx, vals), graph=True)
+        rows.append(row + "; parent {} ms (CUDA graph), PERF.md".format(PARENT_MS["J " + key]))
+        del lane0, vals, idx
+    entry = dict(entries["pair"], quad=entries["quad"])
+    entry["max_abs_err"] = max(e["max_abs_err"] for e in entries.values())
+    return rows, entry
 
 
 LAUNCH_CALLS = 2000  # back-to-back calls a host-time reading

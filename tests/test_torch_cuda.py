@@ -865,3 +865,87 @@ def test_scatter_add_rows_replays_from_a_cuda_graph(dev, n_table, n):
         graph.replay()
         torch.cuda.synchronize()
         _scaled_close(out, gs.scatter_add_rows_reference(torch.zeros((n_table, 1), device=dev), idx, g), 1e-5)
+
+
+# ------------------------------- kernel J: a block an SM, reads then writes
+
+# term count -> (offsets, n_feat), n_off in 1..4
+J_TERMS = {1: ((0,), 1), 2: ((0, 2), 1), 3: ((0, 5, 9), 1), 4: ((0, 2), 2), 5: ((0,), 5), 6: ((0, 2, 62), 2),
+           7: ((0,), 7), 8: ((0, 2, 62, 64), 2)}
+J_ROWS = (1, 31, 32, 33, 777, 1 << 19, 1 << 20)
+
+
+def _j_inputs(dev, k, n_terms, seed, low=0, high=60):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lane0 = torch.randint(low, high, (k,), generator=gen, device=dev, dtype=torch.int32)
+    return lane0, torch.rand((k, n_terms), generator=gen, device=dev)
+
+
+def _j_equal(lane0, vals, offs, n_feat):
+    launches = gs.build_update_rows.launches
+    out = gs.build_update_rows(lane0, vals, offs, n_feat)
+    assert gs.build_update_rows.launches == launches + 1
+    assert torch.equal(out, gs.build_update_rows_reference(lane0, vals, offs, n_feat))
+
+
+@pytest.mark.parametrize("k", J_ROWS)
+@pytest.mark.parametrize("n_terms", sorted(J_TERMS))
+def test_build_update_rows_every_term_count_and_row_count(dev, n_terms, k):
+    # bit-identical: a lane sums its terms from 0 in the plain version's
+    # order; 2^20 rows of 7 or 8 terms take two launches (rounds)
+    offs, n_feat = J_TERMS[n_terms]
+    _j_equal(*_j_inputs(dev, k, n_terms, 50 + n_terms), offs, n_feat)
+
+
+@pytest.mark.parametrize("k", [33, 4099])
+@pytest.mark.parametrize("n_terms", [1, 4, 8])
+def test_build_update_rows_drops_terms_outside_the_row(dev, n_terms, k):
+    # lane0 negative, or pushing its terms past lane 127: those terms drop
+    offs, n_feat = J_TERMS[n_terms]
+    lane0, vals = _j_inputs(dev, k, n_terms, 60, low=-70, high=200)
+    assert bool((lane0 < 0).any()) and bool((lane0 > 127 - 64).any())
+    _j_equal(lane0, vals, offs, n_feat)
+
+
+@pytest.mark.parametrize("k", [33, 777, 1 << 19])
+def test_build_update_rows_sums_overlapping_offsets_in_order(dev, k):
+    # offsets (0, 1) with F = 2: terms 1 and 2 of a row land on one lane
+    lane0, vals = _j_inputs(dev, k, 4, 61, low=-3, high=130)
+    _j_equal(lane0, vals, (0, 1), 2)
+
+
+@pytest.mark.parametrize("k", [777, (1 << 19) + 3])
+@pytest.mark.parametrize("n_terms", [3, 6])
+def test_build_update_rows_takes_inputs_off_16_byte_bounds(dev, n_terms, k):
+    # rows of 12 or 24 bytes, and both inputs viewed one element into their
+    # buffers, so no block's range starts on a 16-byte bound by itself
+    offs, n_feat = J_TERMS[n_terms]
+    lane0, vals = _j_inputs(dev, k + 1, n_terms, 62)
+    lane0 = lane0[1:]
+    vals = vals.reshape(-1)[1:1 + k * n_terms].view(k, n_terms)
+    assert vals.data_ptr() % 16 != 0 and lane0.data_ptr() % 16 != 0
+    _j_equal(lane0, vals, offs, n_feat)
+
+
+@pytest.mark.parametrize("k,n_terms", [(1 << 20, 8), (1 << 19, 4)])
+def test_build_update_rows_replays_from_a_cuda_graph(dev, k, n_terms):
+    # captured once (quad's terms at 2^20 rows: two launches in the graph),
+    # replayed 20 times on new inputs written in place into poisoned rows
+    offs, n_feat = J_TERMS[n_terms]
+    lane0, vals = _j_inputs(dev, k, n_terms, 63)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gs.build_update_rows(lane0, vals, offs, n_feat)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rows = gs.build_update_rows(lane0, vals, offs, n_feat)
+    new_lane0, new_vals = _j_inputs(dev, k, n_terms, 64, low=-5, high=130)
+    lane0.copy_(new_lane0)
+    vals.copy_(new_vals)
+    rows.fill_(float("nan"))
+    for _ in range(20):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(rows, gs.build_update_rows_reference(lane0, vals, offs, n_feat))
