@@ -6,6 +6,8 @@ Counterpart of ``get_ray_points_by_zvals``, ``sphere_ray_intersection`` and
 
 import torch
 
+from ..utils.device_consts import device_constant
+
 _ZERO_EPS = 1e-6  # snap tiny values to zero
 
 
@@ -26,8 +28,11 @@ def sphere_ray_intersection(rays_o, rays_d, radius, origin=(0.0, 0.0, 0.0)):
     mask (N_rays, N_r). Near/far clamped to >= 0; misses give near = far = 0
     and mask False.
     """
-    radius = torch.atleast_1d(torch.as_tensor(radius, dtype=rays_o.dtype, device=rays_o.device))
-    c = torch.as_tensor(origin, dtype=rays_o.dtype, device=rays_o.device)
+    if torch.is_tensor(radius):
+        radius = torch.atleast_1d(radius.to(rays_o.device, rays_o.dtype))
+    else:
+        radius = torch.atleast_1d(device_constant(radius, rays_o.dtype, rays_o.device))
+    c = device_constant(origin, rays_o.dtype, rays_o.device)
     oc = c[None, :] - rays_o  # (N_rays, 3)
     z_half = _set_small_to_zero((oc * rays_d).sum(-1))[:, None]  # (N_rays, 1)
     inside = torch.linalg.vector_norm(oc, dim=-1, keepdim=True) <= radius[None, :]

@@ -12,6 +12,7 @@ in and out explicitly.
 import numpy as np
 import torch
 
+from ..utils.device_consts import device_constant
 from .ray import aabb_ray_intersection
 
 
@@ -52,18 +53,19 @@ class Volume:
         return np.stack([self.origin - half, self.origin + half], axis=-1)
 
     def get_range(self, device=None):
-        """(3, 2) min/max per axis as an f32 tensor."""
-        return torch.as_tensor(self.get_range_np(), dtype=torch.float32, device=device)
+        """(3, 2) min/max per axis as an f32 tensor (made once a device)."""
+        return device_constant(self.get_range_np(), device=device)
 
     def get_diag_len(self):
         return float(np.linalg.norm(self.xyz_len))
 
     def get_voxel_size(self, to_list=True, device=None):
-        """Voxel side lengths: three floats, or an f32 (3,) tensor."""
+        """Voxel side lengths: three floats, or an f32 (3,) tensor (made
+        once a device)."""
         xyz_s = self.xyz_len / self.n_grid
         if to_list:
             return float(xyz_s[0]), float(xyz_s[1]), float(xyz_s[2])
-        return torch.as_tensor(xyz_s, dtype=torch.float32, device=device)
+        return device_constant(xyz_s, device=device)
 
     def get_voxel_pts_by_voxel_idx(self, voxel_idx):
         """(B, 3) xyz voxel index -> (B, 3) voxel centres."""

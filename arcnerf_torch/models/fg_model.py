@@ -13,6 +13,7 @@ import torch
 
 from ..render.ray_helper import march_group, segment_march
 from ..utils.cfgs import get_value_from_cfgs_field
+from ..utils.device_consts import device_constant
 from .base_3d_model import Base3dModel
 from .base_modules.obj_bound import build_obj_bound
 
@@ -170,7 +171,7 @@ class FgModel(Base3dModel):
                 if rand_bkg_color is not None:
                     fill = torch.broadcast_to(rand_bkg_color, v.shape)
                 else:
-                    fill = torch.as_tensor(render_cfgs["bkg_color"], dtype=v.dtype, device=v.device).expand(v.shape)
+                    fill = device_constant(render_cfgs["bkg_color"], v.dtype, v.device).expand(v.shape)
                 output[k] = torch.where(m, v, fill)
             elif k.startswith("depth"):
                 output[k] = torch.where(m, v, float(render_cfgs["depth_far"]))

@@ -60,7 +60,7 @@ for row in profiler.compare_serving_chunk(serving)[0]:
 del serving
 print(profiler.compare_scatter_w1(torch.device("cuda:0"), torch.Generator(device="cuda:0").manual_seed(0)))
 chip_smoke.capture_hash_encode_bwd_stream = profiler.capture_training_streams  # the name in trees before it
-_, stream = chip_smoke.train(profile=True)
+stream = chip_smoke.train(profile=True)[1]
 for row in profiler.compare_hash_encode_stream(stream)[0] + profiler.compare_march_stream(stream["march"])[0]:
     print(row)
 """

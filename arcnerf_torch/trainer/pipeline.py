@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.cfgs import get_value_from_cfgs_field
+from ..utils.device_consts import device_constant
 
 # static bucket ladder for the dynamic batch size (powers of two)
 _BS_BUCKETS = [1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072]
@@ -44,6 +45,7 @@ class Pipeline:
         self.dynamic_update_epoch = get_value_from_cfgs_field(dyn, "update_epoch", None)
         self.dynamic_max_bs = get_value_from_cfgs_field(dyn, "max_batch_size", 32768)
         self.pool = None
+        self.last_picks = None
         self._measured = []
         self.last_valid_per_ray = None
 
@@ -60,9 +62,11 @@ class Pipeline:
         return self.pool["rays_o"].shape[0]
 
     def sample(self, generator):
-        """One step's batch: dict of (1, n_rays, ...) tensors on the device."""
+        """One step's batch: dict of (1, n_rays, ...) tensors on the device.
+        Its ray picks stay in ``last_picks``."""
         n = min(self.n_rays, self.n_total_rays)
         select = torch.randint(0, self.n_total_rays, (n,), generator=generator, device=self.device)
+        self.last_picks = select
         batch = {k: v[select][None] for k, v in self.pool.items()}
         return self.composite_bkg_color(batch, generator)
 
@@ -74,15 +78,17 @@ class Pipeline:
         if self.bkg_color_mode == "random":
             color = torch.rand((1, n, 3), generator=generator, device=self.device)
         else:
-            color = torch.as_tensor(self.bkg_color_mode, dtype=torch.float32, device=self.device).expand(1, n, 3)
+            color = device_constant(self.bkg_color_mode, device=self.device).expand(1, n, 3)
         mask = batch["mask"][..., None]
         batch["img"] = batch["img"] * mask + color * (1.0 - mask)
         batch["bkg_color"] = color
         return batch
 
     def record_valid_pts(self, n_valid_pts, n_rays):
-        """Keep a step's valid-sample count (a device tensor, read only when
-        the batch size is next updated)."""
+        """Keep a step's valid-sample count (a device tensor of its own, read
+        only when the batch size is next updated: a strided step records
+        its copy from the stats ring, never the static buffer a replay
+        overwrites)."""
         self._measured.append((n_valid_pts, float(n_rays)))
 
     def update_dynamic_bs(self, epoch, log_max_allowance):

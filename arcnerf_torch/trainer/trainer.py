@@ -2,17 +2,25 @@
 
 Counterpart of ``arcnerf_tpu/trainer/trainer.py`` (init and data,
 ``init_state``, ``_train_step_impl``, ``_optimize_impl``, ``run_optimize``,
-``train_steps``, ``train``, ``valid_epoch``, ``eval_params``). Where the JAX
-trainer jits a pure step over a state pytree and shards the batch over a
-device mesh, this one runs eagerly on one device with ``nn.Module``
-parameters, ``torch.optim.Adam`` and an explicit occupancy state dict:
+``_stride_for``, ``train_steps``, ``train``, ``valid_epoch``,
+``eval_params``). Where the JAX trainer jits a pure step over a state
+pytree and shards the batch over a device mesh, this one runs on one device
+with ``nn.Module`` parameters, a fused ``torch.optim.Adam`` whose rate is a
+device tensor, and an explicit occupancy state dict:
 
 - all training rays live on the device (``Pipeline``) and each step draws
   its batch there from a seeded ``torch.Generator``, which also gives the
   sample jitter, sigma noise and occupancy-update draws;
 - one optimizer step per epoch; at epochs e > 0 with e % epoch_optim == 0
   the occupancy update runs before the step (every voxel centre while
-  e < epoch_optim_warmup, sampled voxels after);
+  e < epoch_optim_warmup, sampled voxels after), and writes into the
+  occupancy tensors in place;
+- with progress.scan_steps > 1, ``train`` runs strides of steps that end on
+  every host event (logging, validation, checkpoints, the dynamic batch
+  size, the occupancy update), each through ``train_steps``: on the card a
+  replay of the step captured as a CUDA graph for the batch bucket
+  (``step_graph.StepGraph``), on the CPU the same static-buffer step; with
+  scan_steps 1 every step runs eagerly (``train_step``);
 - the dynamic batch size reads the measured valid-sample counts on the
   host only at its update cadence; nothing else syncs per step;
 - validation renders through the serving path (``RenderEngine``).
@@ -40,10 +48,10 @@ from ..utils.model_io import load_record, save_model
 from .ema import ema_debiased, ema_init, ema_update
 from .optimizer import build_optimizer
 from .pipeline import Pipeline
+from .step_graph import StepGraph
 
 # (config path, value that is not ported, ROADMAP item) checked at init
 _UNPORTED = (
-    (("progress", "scan_steps"), lambda v: int(v) > 1, "item 2"),
     (("dist", "model_parallel"), lambda v: int(v) > 1, "item 7"),
     (("optim", "clip_warmup"), lambda v: int(v) > 0, "item 4"),
     (("dataset", "train", "augmentation"), lambda v: v is not None, "item 4"),
@@ -94,7 +102,12 @@ class ArcNerfTrainer:
         self.data = self.prepare_data()
         self.total_epoch = int(get_value_from_cfgs_field(cfgs.progress, "epoch", 100000))
 
-        self.optimizer, self.lr_schedule = build_optimizer(cfgs.optim, self.model.parameters())
+        self.step_graphs = {}  # (n_rays, fed keys) -> StepGraph
+        self.scan_steps = max(1, int(get_value_from_cfgs_field(cfgs.progress, "scan_steps", 1)))
+        self.optimizer, self.lr_schedule = build_optimizer(cfgs.optim, self.model.parameters(), self.device)
+        # the updates applied, on the device: the rate of an update is
+        # lr_schedule(this count), and the step itself increments it
+        self._updates = torch.zeros((), device=self.device)
         self.ema_decay = get_value_from_cfgs_field(cfgs.optim, "ema_decay", None)
         self.ema = ema_init(self.model.named_parameters()) if self.ema_decay else None
         self.bound_state = self.model.init_bound_state(self.device)
@@ -120,6 +133,27 @@ class ArcNerfTrainer:
         self.logger.add_log("Trainer ready: {} steps, {} rays per batch to start".format(
             self.total_epoch, self.pipeline.n_rays))
 
+    @property
+    def step(self):
+        """Optimizer updates applied (the host's count)."""
+        return self._step
+
+    @step.setter
+    def step(self, value):
+        self._step = int(value)
+        self._updates.fill_(self._step)
+
+    @property
+    def bound_state(self):
+        """The occupancy state. Setting a new one drops the captured steps,
+        which read the old tensors; the occupancy update writes in place."""
+        return self._bound_state
+
+    @bound_state.setter
+    def bound_state(self, value):
+        self._bound_state = value
+        self.step_graphs.clear()
+
     # ----------------------------------------------------------------- data
     def prepare_data(self):
         data_dir = get_value_from_cfgs_field(self.cfgs.dir, "data_dir", "data") if hasattr(self.cfgs, "dir") else "data"
@@ -142,11 +176,14 @@ class ArcNerfTrainer:
 
     def load_adam_state(self, by_name):
         """Set the Adam state by parameter name (a checkpoint's "adam", or
-        ``utils.model_io.adam_state_from_jax``)."""
+        ``utils.model_io.adam_state_from_jax``), on the parameters'
+        device as the fused, capturable Adam keeps it. New state tensors
+        drop the captured steps."""
+        self.step_graphs.clear()
         for name, p in self.model.named_parameters():
             if name in by_name:
                 s = by_name[name]
-                self.optimizer.state[p] = {"step": s["step"].detach().float().cpu().clone(),
+                self.optimizer.state[p] = {"step": s["step"].detach().to(p.device, torch.float32).clone(),
                                            "exp_avg": s["exp_avg"].to(p.device, torch.float32).clone(),
                                            "exp_avg_sq": s["exp_avg_sq"].to(p.device, torch.float32).clone()}
 
@@ -167,6 +204,7 @@ class ArcNerfTrainer:
             self.load_adam_state(record.get("adam", {}))
             if self.ema is not None and record.get("ema"):
                 self.ema = {k: v.to(self.device) for k, v in record["ema"].items()}
+                self.step_graphs.clear()
             self.step = self.start_epoch = int(record["step"])
         self.logger.add_log("Loaded checkpoint {} (step {})".format(path, record["step"]))
 
@@ -179,34 +217,33 @@ class ArcNerfTrainer:
 
     @torch.no_grad()
     def run_optimize(self, cur_epoch):
-        """The occupancy update at epochs e > 0 with e % epoch_optim == 0."""
+        """The occupancy update at epochs e > 0 with e % epoch_optim == 0,
+        written into the occupancy tensors that the captured steps read."""
         if not self.epoch_optim or cur_epoch <= 0 or cur_epoch % self.epoch_optim != 0:
             return
         if not self.bound_state.get("fg"):
             return
         warmup = self.epoch_optim_warmup is not None and cur_epoch < self.epoch_optim_warmup
         fg_bound = self.model.fg_model.get_obj_bound()
-        self.bound_state["fg"] = fg_bound.optimize(self.bound_state["fg"], 0 if warmup else 10**9, self.n_coarse,
-                                                   self._fg_opacity, generator=self.generator)
+        fg = self.bound_state["fg"]
+        new = fg_bound.optimize(fg, 0 if warmup else 10**9, self.n_coarse, self._fg_opacity, generator=self.generator)
+        for k, v in new.items():
+            fg[k].copy_(v)
 
     # ------------------------------------------------------------ train step
-    def train_step(self, epoch, feed=None):
-        """One optimizer step at ``epoch`` (the occupancy update first, on
-        its cadence). ``feed`` (dict of (1, n_rays, ...) tensors) replaces
-        the drawn batch. Returns stats of device tensors."""
-        self.run_optimize(epoch)
-        if feed is None:
-            feed = self.pipeline.sample(self.generator)
-        n_rays = feed["rays_o"].shape[1]
+    def update(self, feed):
+        """Forward, loss, backward, Adam at the scheduled rate and the EMA on
+        one batch: the device work of a step, with no host value in it
+        (``StepGraph`` captures it). Returns its stats, device tensors."""
         out = self.model(feed, inference_only=False, bound_state=self.bound_state, generator=self.generator)
         loss_dict = self.loss_factory(feed, out)
         self.optimizer.zero_grad(set_to_none=True)
         loss_dict["sum"].backward()
-        lr = self.lr_schedule(self.step)
+        lr = self.lr_schedule(self._updates)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"].copy_(lr)
         self.optimizer.step()
-        self.step += 1
+        self._updates.add_(1)
         if self.ema is not None:
             ema_update(self.ema, self.model.named_parameters(), self.ema_decay)
 
@@ -219,8 +256,65 @@ class ArcNerfTrainer:
                 break
         if "n_valid_pts" in out:
             stats["n_valid_pts"] = out["n_valid_pts"]
-            if self.log_max_allowance:
-                self.pipeline.record_valid_pts(out["n_valid_pts"], n_rays)
+        return stats
+
+    def train_step(self, epoch, feed=None):
+        """One eager optimizer step at ``epoch`` (the occupancy update first,
+        on its cadence). ``feed`` (dict of (1, n_rays, ...) tensors) replaces
+        the drawn batch. Returns stats of device tensors."""
+        self.run_optimize(epoch)
+        if feed is None:
+            feed = self.pipeline.sample(self.generator)
+        n_rays = feed["rays_o"].shape[1]
+        stats = self.update(feed)
+        self._step += 1
+        if "n_valid_pts" in stats and self.log_max_allowance:
+            self.pipeline.record_valid_pts(stats["n_valid_pts"], n_rays)
+        stats["n_rays"] = n_rays
+        return stats
+
+    def _stride_for(self, epoch, cadences):
+        """How many steps can run as one stride without crossing a host-side
+        event (logging, validation, saving, ...): events land exactly on
+        stride ends."""
+        stride = min(self.scan_steps, self.total_epoch - epoch)
+        for c in cadences:
+            if c is not None and c > 0:
+                stride = min(stride, c - (epoch % c))
+        return max(1, stride)
+
+    def _step_graph(self, n_rays, stride, feed=None):
+        """The bucket's StepGraph (fed form when ``feed`` is a batch), made
+        when missing or when its ring is shorter than ``stride``."""
+        key = (n_rays, None if feed is None else tuple(sorted(feed)))
+        graph = self.step_graphs.get(key)
+        if graph is None or graph.capacity < stride:
+            graph = self.step_graphs[key] = StepGraph(self, n_rays, max(self.scan_steps, stride), feed)
+        return graph
+
+    def train_steps(self, epoch, stride, feeds=None):
+        """Run ``stride`` consecutive optimizer steps from ``epoch`` (the
+        occupancy update first, on its cadence); ``feeds``, one batch a
+        step, replaces the drawn batches. With scan_steps 1 and stride 1 the
+        step is eager; else the steps run through the bucket's static-buffer
+        step: replays of its CUDA graph on the card. Appends each step's
+        loss to ``loss_history``; returns the stats of the last step."""
+        if stride <= 1 and self.scan_steps <= 1:
+            stats = self.train_step(epoch, None if feeds is None else feeds[0])
+            self.loss_history.append(stats["loss"])
+            return stats
+        self.run_optimize(epoch)
+        if feeds is None:
+            n_rays = min(self.pipeline.n_rays, self.pipeline.n_total_rays)
+        else:
+            n_rays = feeds[0]["rays_o"].shape[1]
+        seq = self._step_graph(n_rays, stride, None if feeds is None else feeds[0]).run(stride, feeds)
+        self._step += stride
+        self.loss_history.extend(seq["loss"].unbind())
+        if "n_valid_pts" in seq and self.log_max_allowance:
+            for count in seq["n_valid_pts"].unbind():
+                self.pipeline.record_valid_pts(count, n_rays)
+        stats = {k: v[-1] for k, v in seq.items()}
         stats["n_rays"] = n_rays
         return stats
 
@@ -311,21 +405,26 @@ class ArcNerfTrainer:
 
     # ------------------------------------------------------------- main loop
     def train(self):
-        self.logger.add_log("Start training: {} epochs (1 step/epoch)".format(self.total_epoch))
+        self.logger.add_log("Start training: {} epochs (1 step/epoch, strides of up to {})".format(
+            self.total_epoch, self.scan_steps))
         progress = self.cfgs.progress
         epoch_loss = int(get_value_from_cfgs_field(progress, "epoch_loss", 100))
         epoch_val = int(get_value_from_cfgs_field(progress, "epoch_val", -1))
         epoch_save = int(get_value_from_cfgs_field(progress, "epoch_save_checkpoint", 100000))
         save_time = float(get_value_from_cfgs_field(progress, "save_time", 1800))
+        # the occupancy update runs eagerly between strides, so its cadence
+        # ends strides too (the JAX trainer's non-folded path)
+        cadences = (epoch_loss, epoch_val, epoch_save,
+                    self.pipeline.dynamic_update_epoch if self.log_max_allowance else None, self.epoch_optim)
         t_start = t_window = last_save = time.time()
         epoch = self.start_epoch
         try:
             while epoch < self.total_epoch:
                 if self.log_max_allowance:
                     self.pipeline.update_dynamic_bs(epoch, self.log_max_allowance)
-                stats = self.train_step(epoch)
-                self.loss_history.append(stats["loss"])
-                epoch += 1
+                stride = self._stride_for(epoch, cadences)
+                stats = self.train_steps(epoch, stride)
+                epoch += stride
 
                 if epoch % epoch_loss == 0:
                     self._warn_budget_overflow(stats)

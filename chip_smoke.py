@@ -62,6 +62,20 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    points with the trained table, and kernels C and F on that step's
    compositing stream (its segment-length distribution printed), each held
    against its plain version and timed from a CUDA graph beside its bound.
+   The graph phase: (a) the same 400 steps again with
+   ``--progress.scan_steps 16`` (strides of replays of the step captured
+   as a CUDA graph, one a ray bucket): the loss is finite and falls, the
+   bitfield changes, the held-out PSNR is >= 20 dB and within 0.5 dB of
+   the eager run's; prints each bucket's capture time and the peak
+   memory, and the launch counters, which count each bucket's warm-up
+   step and capture, not the replays. (b) Two eager copies of that
+   trainer (its checkpoint, its generator state) run 16 steps beside one
+   stride of 16 replays: every step's picks and valid-sample count equal,
+   every loss within 1e-2 relative (the two eager copies show the spread
+   of kernel E's atomics). (c) Median ms/step and rays/s of eager steps
+   and of graph replays at the same bucket. (d) torch.profiler over one
+   stride of replays: device busy and idle, Adam's time, and each of A-F
+   launched a replay as often as an eager step launches it.
 7. Prints the kernel table as JSON (A-F's launches from the training run,
    G-J's from the tools; G-J's times at the probes' largest shape, J's
    also at quad's; A's entry also holds its save_pre build, B's and E's
@@ -112,6 +126,14 @@ RGB_MAX, RGB_MEAN, DEPTH_MAX = 2e-2, 1e-3, 5e-2
 PARENT_MS = {"B": 0.1364, "C": 0.0089, "C captured": 0.0361, "C serving": 0.0087, "F": 0.0340, "I": 0.7151,
              "J quad": 0.2042, "J pair": 0.2507}
 TRAIN_STEPS, STEADY_STEPS, PSNR_FLOOR = 400, 100, 20.0
+# the graph phase: bench.py's stride; the held-out PSNR of the strided run
+# within 0.5 dB of the eager run's; graph replays against eager steps from
+# one state, each step's loss within 1e-2 relative - kernel E adds the
+# table gradient with float atomics in an order that changes from run to
+# run, so two runs part in the last bits after the first step (an eager run
+# against a second eager run shows the spread); the draws, and so the picks
+# and the valid-sample counts, stay exactly equal
+GRAPH_STRIDE, GRAPH_PSNR_GAP, GRAPH_LOSS_TOL, GRAPH_TIMED_STRIDES = 16, 0.5, 1e-2, 6
 # one training step on the card vs the plain path on the CPU (same batch,
 # no draws): bf16 flips in the MLPs and f32 sums in another order (atomics)
 STEP_RAYS, STEP_LOSS_TOL, STEP_GRAD_TOL = 1024, 1e-3, 1e-2
@@ -1258,16 +1280,21 @@ def capture_chunk(engine, sample, bkg, chunk=SERVE_CHUNK):
     return seen[chunk]
 
 
+def train_argv(expr):
+    """The recipe's training command line, TRAIN_STEPS steps into ``expr``."""
+    return ["--configs", os.path.join(ROOT, "configs/expr/synthetic_ngp.yaml"), "--device", "cuda:0",
+            "--dir.expr_dir", expr, "--progress.epoch", str(TRAIN_STEPS), "--progress.epoch_loss", "50",
+            "--progress.epoch_val", "-1", "--progress.epoch_save_checkpoint", "-1"]
+
+
 def train(profile=False):
     """The training path: the full-width recipe for TRAIN_STEPS steps
-    through ``arcnerf_torch.train``; returns its launch counts and the
-    stream kernel E received in one more step."""
+    through ``arcnerf_torch.train``; returns its launch counts, the stream
+    kernel E received in one more step and the held-out PSNR."""
     from arcnerf_torch import train as train_entry
 
     expr = os.path.join(WORK_DIR, "train")
-    argv = ["--configs", os.path.join(ROOT, "configs/expr/synthetic_ngp.yaml"), "--device", "cuda:0",
-            "--dir.expr_dir", expr, "--progress.epoch", str(TRAIN_STEPS), "--progress.epoch_loss", "50",
-            "--progress.epoch_val", "-1", "--progress.epoch_save_checkpoint", "-1"]
+    argv = train_argv(expr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1308,7 +1335,7 @@ def train(profile=False):
     if profile:
         profile_steps(trainer)
     shutil.rmtree(expr)
-    return launches, stream
+    return launches, stream, val["psnr"]
 
 
 def steady_steps(trainer, n=STEADY_STEPS):
@@ -1328,6 +1355,7 @@ def steady_steps(trainer, n=STEADY_STEPS):
     n_rays = trainer.pipeline.n_rays
     print("steady steps {}-{}: median {:.3f} ms/step (mean {:.3f}), bucket {} rays, {:.0f} rays/s".format(
         epoch0, epoch0 + n - 1, med, statistics.mean(step_ms), n_rays, n_rays / med * 1e3))
+    return med
 
 
 def check_step_against_cpu(trainer):
@@ -1378,11 +1406,18 @@ def profile_steps(trainer, n=4):
         for e in range(epoch0 + 1, epoch0 + 1 + n):
             trainer.train_step(e)
         torch.cuda.synchronize()
+    device_split(prof, n, "profile of {} steps".format(n))
+
+
+def device_split(prof, n, label):
+    """Print a profile's device busy time and idle share, its kernels by
+    name and each of A-F per step, over n steps; returns the calls by
+    kernel name, or None when the profile holds no device event."""
     spans = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False))
     if not spans:
-        print("profile: no device events recorded")
-        return
+        print(label + ": no device events recorded")
+        return None
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     by_name, calls = {}, {}
     for s, e, name in spans:
@@ -1395,8 +1430,8 @@ def profile_steps(trainer, n=4):
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
     total = sum(by_name.values())
-    print("profile of {} steps: device busy {:.2f} ms of a {:.2f} ms span ({:.1f} % idle), {} kernels".format(
-        n, busy / 1e3, span / 1e3, 100.0 * (1 - busy / span), len(spans)))
+    print("{}: device busy {:.2f} ms of a {:.2f} ms span ({:.1f} % idle), {} kernels".format(
+        label, busy / 1e3, span / 1e3, 100.0 * (1 - busy / span), len(spans)))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print("  {:8.3f} ms/step {:5.1f} %  {}".format(us / 1e3 / n, 100.0 * us / total, name[:110]))
     split = []
@@ -1404,7 +1439,157 @@ def profile_steps(trainer, n=4):
         names = [name for name in by_name if any(p in name for p in parts)]
         split.append("{} {:.3f} ms ({:.2f} launches)".format(key, sum(by_name[m] for m in names) / 1e3 / n,
                                                              sum(calls[m] for m in names) / n))
-    print("profile per step by kernel: " + ", ".join(split))
+    adam = [name for name in by_name if "adam" in name.lower()]
+    split.append("Adam {:.3f} ms ({:.2f} launches)".format(sum(by_name[m] for m in adam) / 1e3 / n,
+                                                          sum(calls[m] for m in adam) / n))
+    print(label + " per step by kernel: " + ", ".join(split))
+    return calls
+
+
+def train_graph(eager_psnr):
+    """The graph phase: (a) the recipe's TRAIN_STEPS steps again through
+    ``arcnerf_torch.train`` with ``--progress.scan_steps GRAPH_STRIDE``,
+    the same seed and otherwise the same command line, each stride
+    replays of the step captured for its batch bucket; (b) graph replays
+    against eager steps from one state; (c) eager and graph ms/step at the
+    same bucket; (d) torch.profiler over one stride of replays. Returns
+    the numbers it printed."""
+    from arcnerf_torch import train as train_entry
+
+    expr = os.path.join(WORK_DIR, "train_graph")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_entry.main(train_argv(expr) + ["--progress.scan_steps", str(GRAPH_STRIDE)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the counters count Python calls: each bucket's eager warm-up step and
+    # its capture, never a replay (the profile below reads the replays)
+    launches = read_launches("ABCDEF")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("graph training run (strides of {}): launch counters (warm-up steps and captures) {}".format(
+        GRAPH_STRIDE, launches))
+    if min(launches.values()) <= 0:
+        raise AssertionError("graph run: a kernel of the training step was never captured: {}".format(launches))
+    losses = torch.stack(trainer.loss_history).float().cpu()
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print("graph run loss: first 20 steps {:.5f}, last 20 steps {:.5f}, {} steps, all finite {}".format(
+        first, last, losses.numel(), bool(torch.isfinite(losses).all())))
+    if losses.numel() != TRAIN_STEPS or not torch.isfinite(losses).all() or not last < first:
+        raise AssertionError("graph run: the loss is not finite, not one a step, or did not fall")
+    occ = float(trainer.bound_state["fg"]["bitfield"].float().mean())
+    if occ >= 1.0:
+        raise AssertionError("graph run: the occupancy bitfield never changed")
+    for (n_rays, _), graph in sorted(trainer.step_graphs.items(), key=lambda kv: kv[0][0]):
+        print("graph run: bucket {} rays captured in {:.3f} s".format(n_rays, graph.capture_seconds))
+    print("graph run {} steps: wall {:.1f} s, bucket {} rays, valid samples/ray {:.3f}, occupancy {:.4f}, "
+          "peak {:.2f} GiB".format(TRAIN_STEPS, wall, trainer.pipeline.n_rays, trainer.pipeline.last_valid_per_ray,
+                                   occ, peak))
+    val = trainer.valid_epoch(TRAIN_STEPS)
+    print("graph run held-out view: PSNR {:.3f} dB (eager run {:.3f} dB, floor {} dB, gap at most {} dB)".format(
+        val["psnr"], eager_psnr, PSNR_FLOOR, GRAPH_PSNR_GAP))
+    if not val["psnr"] >= PSNR_FLOOR or abs(val["psnr"] - eager_psnr) > GRAPH_PSNR_GAP:
+        raise AssertionError("graph run: held-out PSNR {} against {} (eager)".format(val["psnr"], eager_psnr))
+
+    eager = graph_against_eager(trainer, expr)
+    numbers = graph_speed(trainer, eager)
+    numbers.update(psnr=val["psnr"], eager_psnr=eager_psnr, peak_gib=peak,
+                   capture_s={k[0]: g.capture_seconds for k, g in trainer.step_graphs.items()})
+    shutil.rmtree(expr)
+    return numbers
+
+
+def graph_against_eager(graph_trainer, expr):
+    """(b) Two eager copies of the graph run's trainer (its checkpoint
+    loaded, its generator state copied) and the trainer itself from the
+    same state: GRAPH_STRIDE eager steps on each copy, one stride of
+    replays on the trainer. Every step's picks and valid-sample count
+    equal exactly; every step's loss within GRAPH_LOSS_TOL. Returns the
+    first eager copy."""
+    from arcnerf_torch.trainer import ArcNerfTrainer
+    from arcnerf_torch.utils.cfgs import parse_configs
+
+    epoch0 = graph_trainer.step
+    graph_trainer.save(["graph_vs_eager"], epoch0)
+    ckpt = os.path.join(graph_trainer.ckpt_dir, "graph_vs_eager.pt")
+    runs = []
+    for name in ("eager_a", "eager_b"):
+        eager = ArcNerfTrainer(parse_configs(train_argv(os.path.join(expr, name)) + ["--resume", ckpt]))
+        eager.pipeline.n_rays = graph_trainer.pipeline.n_rays
+        eager.generator.set_state(graph_trainer.generator.get_state())
+        picks, counts = [], []
+        for e in range(epoch0, epoch0 + GRAPH_STRIDE):
+            counts.append(int(eager.train_steps(e, 1)["n_valid_pts"]))
+            picks.append(eager.pipeline.last_picks.clone())
+        runs.append((eager, picks, counts, torch.stack(eager.loss_history).float().cpu()))
+    graph_trainer.loss_history = []
+    graph_trainer.train_steps(epoch0, GRAPH_STRIDE)
+    step = graph_trainer.step_graphs[(min(graph_trainer.pipeline.n_rays, graph_trainer.pipeline.n_total_rays), None)]
+    g_picks, g_counts = step.picks[:GRAPH_STRIDE], [int(c) for c in step.ring["n_valid_pts"][:GRAPH_STRIDE]]
+    g_losses = torch.stack(graph_trainer.loss_history).float().cpu()
+    eager, picks, counts, losses = runs[0]
+    rel = ((g_losses - losses).abs() / losses.abs()).max()
+    spread = ((runs[1][3] - losses).abs() / losses.abs()).max()
+    same_picks = all(torch.equal(a, b) for a, b in zip(picks, g_picks))
+    print("graph vs eager from step {} at {} rays, {} steps: picks equal {}, valid samples equal {} (first step "
+          "{} vs {}), loss rel diff max {:.3e} (tol {}), eager vs eager {:.3e}".format(
+              epoch0, graph_trainer.pipeline.n_rays, GRAPH_STRIDE, same_picks, g_counts == counts, g_counts[0],
+              counts[0], float(rel), GRAPH_LOSS_TOL, float(spread)))
+    if not same_picks or g_counts != counts or runs[1][2] != counts:
+        raise AssertionError("graph vs eager: the draws differ")
+    if float(rel) > GRAPH_LOSS_TOL:
+        raise AssertionError("graph vs eager: a step's loss differs by {} relative".format(float(rel)))
+    os.remove(ckpt)
+    return eager
+
+
+def graph_speed(graph_trainer, eager):
+    """(c) median ms/step of eager steps and of graph replays at the same
+    bucket (strides off the occupancy cadence, CUDA events around each);
+    (d) torch.profiler over one stride of replays, whose kernels A-F must
+    each launch as often a replay as the counters show for an eager step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_rays = graph_trainer.pipeline.n_rays
+    eager_ms = steady_steps(eager)
+    epoch = graph_trainer.step + 1  # strides start off the occupancy cadence
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(GRAPH_TIMED_STRIDES + 1)]
+    marks[0].record()
+    for i in range(GRAPH_TIMED_STRIDES):
+        graph_trainer.train_steps(epoch + i * GRAPH_STRIDE, GRAPH_STRIDE)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    per_step = [marks[i].elapsed_time(marks[i + 1]) / GRAPH_STRIDE for i in range(GRAPH_TIMED_STRIDES)]
+    graph_ms = statistics.median(per_step)
+    print("graph replays, {} strides of {} at {} rays: median {:.3f} ms/step (strides {}), {:.0f} rays/s; eager "
+          "median {:.3f} ms/step, {:.0f} rays/s".format(
+              GRAPH_TIMED_STRIDES, GRAPH_STRIDE, n_rays, graph_ms, ", ".join("{:.3f}".format(t) for t in per_step),
+              n_rays / graph_ms * 1e3, eager_ms, n_rays / eager_ms * 1e3))
+
+    reset_launches()
+    eager.train_step(eager.step + 1 if (eager.step + 1) % GRAPH_STRIDE else eager.step + 2)
+    torch.cuda.synchronize()
+    expected = read_launches("ABCDEF")
+    epoch = graph_trainer.step + 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph_trainer.train_steps(epoch, GRAPH_STRIDE)
+        torch.cuda.synchronize()
+    calls = device_split(prof, GRAPH_STRIDE, "graph profile of one stride ({} replays)".format(GRAPH_STRIDE))
+    if calls is None:
+        raise AssertionError("graph profile: no device events recorded")
+    for key, parts in PROFILE_KERNELS.items():
+        seen = sum(n for name, n in calls.items() if parts[0] in name)
+        if seen != expected[key] * GRAPH_STRIDE:
+            raise AssertionError("graph profile: kernel {} launched {} times in {} replays, an eager step launches "
+                                 "it {} times".format(key, seen, GRAPH_STRIDE, expected[key]))
+    print("graph profile: kernels A-F launched as an eager step launches them ({} a step)".format(expected))
+    # Adam reads the parameter, its gradient and both moments and writes
+    # back all but the gradient: 28 bytes a parameter; 11 operations each
+    n_params = sum(p.numel() for p in graph_trainer.model.parameters())
+    adam_bound, adam_by = bound(28 * n_params, 11 * n_params, F32_FLOP_S)
+    print("Adam over {} parameters: bound {:.4f} ms by {}".format(n_params, adam_bound, adam_by))
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms, "n_rays": n_rays, "adam_bound_ms": adam_bound}
 
 
 def main():
@@ -1469,7 +1654,7 @@ def main():
         print(row)
     stats["C"]["max_abs_err"] = max(stats["C"]["max_abs_err"], stats["C"]["serving_chunk"]["max_abs_err"])
     del serving
-    train_launches, e_stream = train(profile="--profile" in sys.argv[1:])
+    train_launches, e_stream, eager_psnr = train(profile="--profile" in sys.argv[1:])
     launches = dict(train_launches, **{k: tool_launches[k] for k in "GHIJ"})
     rows, stats["E"]["training_stream"] = compare_hash_encode_bwd_stream(e_stream)
     for row in rows:
@@ -1487,6 +1672,9 @@ def main():
         stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], captured[key]["max_abs_err"])
     stats["F"]["captured_stream"]["lengths"] = captured["lengths"]
     del e_stream
+    torch.cuda.empty_cache()
+    graph = train_graph(eager_psnr)
+    print("graph phase: {}".format(json.dumps(graph, sort_keys=True)))
 
     meta = {
         "A": ("fused_mlp_fwd", "arcnerf_torch/csrc/fused_mlp.cu", "arcnerf_tpu/ops/fused_mlp.py:125"),

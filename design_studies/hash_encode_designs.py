@@ -96,7 +96,7 @@ def captured_stream():
 
     os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
     os.makedirs(chip_smoke.WORK_DIR, exist_ok=True)
-    _, stream = chip_smoke.train()
+    stream = chip_smoke.train()[1]
     return stream
 
 

@@ -949,3 +949,79 @@ def test_build_update_rows_replays_from_a_cuda_graph(dev, k, n_terms):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(rows, gs.build_update_rows_reference(lane0, vals, offs, n_feat))
+
+
+# ------------------------------------------------- strided steps as graphs
+
+# the NGP recipe at a small size (64-wide nets, as kernels A and D take)
+GRAPH_ARGV = ["--model.geometry.encoder.hashmap_size", "12", "--model.geometry.encoder.n_levels", "4",
+              "--model.obj_bound.volume.n_grid", "16", "--model.rays.n_sample", "64",
+              "--model.obj_bound.log_max_allowance", "12", "--dataset.train.n_imgs", "2", "--dataset.train.wh",
+              "[16,16]", "--dataset.val.n_imgs", "1", "--dataset.val.wh", "[16,16]", "--n_rays", "256",
+              "--device", "cuda:0"]
+# graph replays against eager steps from one state: kernel E adds the table
+# gradient with float atomics in an order that changes from run to run, so
+# the two runs part in the last bits after step 1 (the graph's draws, and
+# so the picks and the valid-sample counts, stay exactly equal); the loss of
+# each step within 1e-2 relative, each parameter within 5e-2 relative norm
+GRAPH_LOSS_TOL, GRAPH_PARAM_TOL = 1e-2, 5e-2
+
+
+def _graph_trainer(tmp_path, name, scan_steps):
+    import os
+
+    from arcnerf_torch.trainer import ArcNerfTrainer
+    from arcnerf_torch.utils.cfgs import load_configs, update_configs_by_dotlist
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfgs = update_configs_by_dotlist(load_configs(os.path.join(root, "configs/expr/synthetic_ngp.yaml")),
+                                     GRAPH_ARGV + ["--dir.expr_dir", str(tmp_path / name), "--progress.scan_steps",
+                                                   str(scan_steps)])
+    return ArcNerfTrainer(cfgs)
+
+
+def test_graph_strides_follow_the_eager_steps(dev, tmp_path):
+    eager, graph = _graph_trainer(tmp_path, "eager", 1), _graph_trainer(tmp_path, "graph", 4)
+    picks, counts = [], []
+    for e in range(12):
+        counts.append(int(eager.train_steps(e, 1)["n_valid_pts"]))
+        picks.append(eager.pipeline.last_picks.clone())
+    captures = encoding.hash_encode_bwd.launches
+    graph_picks, graph_counts = [], []
+    for e in range(0, 12, 4):
+        graph.train_steps(e, 4)
+        step = graph.step_graphs[(256, None)]
+        graph_picks += list(step.picks.clone())
+        graph_counts += [int(c) for c in step.ring["n_valid_pts"]]
+    torch.cuda.synchronize()
+    # the counters count Python calls: the bucket's warm-up step and its capture
+    assert encoding.hash_encode_bwd.launches == captures + 2
+    assert step.graph is not None and step.capture_seconds > 0
+    assert graph_counts == counts and all(torch.equal(a, b) for a, b in zip(picks, graph_picks))
+    losses_e, losses_g = torch.stack(eager.loss_history).cpu(), torch.stack(graph.loss_history).cpu()
+    torch.testing.assert_close(losses_g, losses_e, rtol=GRAPH_LOSS_TOL, atol=0)
+    assert torch.equal(eager.generator.get_state(), graph.generator.get_state())
+    params_g = dict(graph.model.named_parameters())
+    for name, p in eager.model.named_parameters():
+        rel = float((params_g[name] - p).detach().norm() / p.detach().norm())
+        assert rel < GRAPH_PARAM_TOL, (name, rel)
+
+
+def test_graph_capture_failure_raises(dev, tmp_path):
+    # a host read inside the step cannot be captured: the capture raises and
+    # nothing runs the step eagerly in its place
+    trainer = _graph_trainer(tmp_path, "fails", 4)
+    update = trainer.update
+
+    def update_with_host_read(feed):
+        stats = update(feed)
+        float(stats["loss"])
+        return stats
+
+    trainer.update = update_with_host_read
+    with pytest.raises(RuntimeError):
+        trainer.train_steps(0, 4)
+    torch.cuda.synchronize()
+    step = trainer.step_graphs[(256, None)]
+    assert step.graph is None and trainer.step == 0
+    assert int(step.slot) == 1  # the bucket's eager warm-up step ran; no other

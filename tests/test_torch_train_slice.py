@@ -8,7 +8,10 @@ point budget, so both packages take the compacted path. The port's
 trainer, given the same params (``state_from_jax``) and batches, must
 follow: step 1's gradients per tensor, the loss over five steps, and a
 resume from the JAX state after two steps (params and Adam state bridged
-by ``adam_state_from_jax``). Then the entry: ``python -m
+by ``adam_state_from_jax``). The same five batches also go through the JAX
+trainer's strided step (``_scan_steps_fn``, one ``lax.scan``) and the
+port's (``train_steps(0, 5, feeds=...)``, its static-buffer step). Then the
+entry: ``python -m
 arcnerf_torch.train`` on the CPU writes a checkpoint that
 ``arcnerf_torch.evaluate`` loads, and ``--resume`` continues it.
 
@@ -26,7 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from arcnerf_tpu.parallel.mesh import shard_batch
+from arcnerf_tpu.parallel.mesh import shard_batch, shard_stacked_batch
 from arcnerf_tpu.trainer import ArcNerfTrainer as JaxTrainer
 from arcnerf_tpu.utils.cfgs import load_configs as jax_load_configs
 from arcnerf_tpu.utils.cfgs import update_configs_by_dotlist as jax_update
@@ -80,15 +83,21 @@ def _batches(pool, seed=0):
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """Five JAX train steps from seeded params: the batches, the losses, the
-    gradients of step 1 (Adam's first moment / 0.1), and the state (params,
-    Adam moments) after steps 2 and 3."""
+    gradients of step 1 (Adam's first moment / 0.1), the state (params,
+    Adam moments) after steps 2 and 3, and the losses of the same five
+    steps as one stride of ``_scan_steps_fn``."""
     cfgs = jax_update(jax_load_configs(CFG), SMALL + TRAIN + [
         "--dir.expr_dir", str(tmp_path_factory.mktemp("jax_expr"))])
     trainer = JaxTrainer(cfgs)
     params = jax.tree_util.tree_map(jnp.asarray, seeded_params(trainer.state["params"]))
     bound_np = sphere_bound_state()
-    state = dict(trainer.state, params=params, opt_state=trainer.tx.init(params),
-                 bound_state=jax.tree_util.tree_map(jnp.asarray, bound_np))
+
+    def fresh_state():  # a copy of its own: the steps donate their state
+        state = dict(trainer.state, params=params, opt_state=trainer.tx.init(params),
+                     bound_state=jax.tree_util.tree_map(jnp.asarray, bound_np))
+        return jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True) if isinstance(x, jax.Array) else x, state)
+
+    state = fresh_state()
     batches = _batches(trainer.pipeline.data)
     run = {"batches": batches, "losses": [], "bound": bound_np,
            "params0": jax.tree_util.tree_map(np.asarray, params)}
@@ -102,11 +111,16 @@ def jax_run(tmp_path_factory):
             run["n_valid"] = int(stats["n_valid_pts"])
         if t in (1, 2):
             run["state{}".format(t + 1)] = (jax.tree_util.tree_map(np.asarray, state["params"]), count, mu, nu)
+    feed_stack = shard_stacked_batch({k: np.stack([b[k] for b in batches]) for k in batches[0]}, trainer.mesh)
+    keys = jnp.stack([jax.random.PRNGKey(t) for t in range(N_STEPS)])
+    _, stats_seq = trainer._scan_steps_fn(fresh_state(), feed_stack, keys, 0)
+    run["scan_losses"] = np.asarray(stats_seq["loss"]).tolist()
+    run["scan_n_valid"] = np.asarray(stats_seq["n_valid_pts"]).tolist()
     return run
 
 
-def _port_trainer(tmp_path, params_np, bound_np):
-    cfgs = update_configs_by_dotlist(load_configs(CFG), SMALL + TRAIN + [
+def _port_trainer(tmp_path, params_np, bound_np, extra=()):
+    cfgs = update_configs_by_dotlist(load_configs(CFG), SMALL + TRAIN + list(extra) + [
         "--device", "cpu", "--dir.expr_dir", str(tmp_path / "port_expr")])
     trainer = ArcNerfTrainer(cfgs)
     state, bound = state_from_jax(params_np, bound_np)
@@ -136,6 +150,28 @@ def test_train_step_gradients_and_loss_curve_track_jax(jax_run, tmp_path):
                 assert _rel(got.numpy(), want.numpy()) < GRAD_REL, (name, _rel(got.numpy(), want.numpy()))
     np.testing.assert_allclose(losses, jax_run["losses"], rtol=LOSS_REL)
     assert losses[-1] < losses[0]
+
+
+def test_strided_steps_track_the_jax_scan(jax_run, tmp_path):
+    # the five fed batches as one stride of the port's static-buffer step
+    # against one lax.scan of the JAX trainer's step, from the same params
+    assert len(set(jax_run["scan_n_valid"])) > 1  # five different batches
+    trainer = _port_trainer(tmp_path, jax_run["params0"], jax_run["bound"], ["--progress.scan_steps", str(N_STEPS)])
+    stats = trainer.train_steps(0, N_STEPS, feeds=[_feed(b) for b in jax_run["batches"]])
+    assert trainer.step == N_STEPS and len(trainer.loss_history) == N_STEPS
+    assert int(stats["n_valid_pts"]) == jax_run["scan_n_valid"][-1]
+    losses = [float(v) for v in trainer.loss_history]
+    np.testing.assert_allclose(losses, jax_run["scan_losses"], rtol=LOSS_REL)
+    np.testing.assert_allclose(losses, jax_run["losses"], rtol=LOSS_REL)
+    # Adam's first moment after step 1 of a stride (the scan's step 1 is
+    # the JAX step of jax_run)
+    trainer = _port_trainer(tmp_path, jax_run["params0"], jax_run["bound"], ["--progress.scan_steps", str(N_STEPS)])
+    trainer.train_steps(0, 1, feeds=[_feed(jax_run["batches"][0])])
+    port_grads, _ = state_from_jax(jax_run["grads"], {})
+    adam = trainer.adam_state()
+    for name, want in port_grads.items():
+        got = adam[name]["exp_avg"] / 0.1
+        assert _rel(got.numpy(), want.numpy()) < GRAD_REL, (name, _rel(got.numpy(), want.numpy()))
 
 
 def test_resume_from_a_bridged_jax_state(jax_run, tmp_path):
@@ -219,8 +255,7 @@ def test_ema_renders_with_the_shadow_and_restores_the_live_params(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    for extra, match in ((["--progress.scan_steps", "8"], "scan_steps"), (["--dist.model_parallel", "2"],
-                                                                         "model_parallel"),
+    for extra, match in ((["--dist.model_parallel", "2"], "model_parallel"),
                          (["--optim.clip_gradients", "1.0"], "clip_gradients"),
                          (["--dataset.train.scheduler.precrop.ratio", "0.5",
                            "--dataset.train.scheduler.precrop.max_epoch", "10"], "precrop")):

@@ -18,7 +18,6 @@ SMALL = ["--device", "cpu", "--model.geometry.encoder.hashmap_size", "12", "--mo
 
 # option -> (its dotlist, the ROADMAP Queue 1 item that ports it)
 CASES = {
-    "progress.scan_steps": (["--progress.scan_steps", "8"], "item 2"),
     "dist.model_parallel": (["--dist.model_parallel", "2"], "item 7"),
     "optim.clip_warmup": (["--optim.clip_warmup", "10"], "item 4"),
     "dataset.train.augmentation": (["--dataset.train.augmentation.shuffle", "True"], "item 4"),
