@@ -2,8 +2,9 @@
 
 Counterpart of the parts of ``arcnerf_tpu/datasets/base.py`` that an
 analytic scene needs: skip decimation, the eval subset nearest the average
-pose, ray precaching and ``__getitem__``. Pose normalisation, rescaling and
-the capture-data helpers wait for the datasets that use them.
+pose, ``get_intrinsic``, ray precaching and ``__getitem__``. Pose
+normalisation, rescaling and the capture-data helpers wait for the datasets
+that use them.
 """
 
 import numpy as np
@@ -52,6 +53,10 @@ class Base3dDataset:
         if self.eval_max_sample is None or self.eval_max_sample >= self.n_imgs:
             return
         self.apply_holdout(self.find_closest_cam_ind(self.eval_max_sample))
+
+    def get_intrinsic(self, idx=0):
+        """Camera ``idx``'s (3, 3) intrinsic, float64 numpy."""
+        return self.cameras[idx].get_intrinsic()
 
     def find_closest_cam_ind(self, n_close):
         c2ws = np.stack([cam.get_pose() for cam in self.cameras])

@@ -1,12 +1,18 @@
 """Object bounds that constrain ray sampling.
 
 Counterpart of ``arcnerf_tpu/models/base_modules/obj_bound.py``: the
-per-ray inference sample cap, the occupancy mask, ``build_obj_bound``,
-``BasicBound`` and ``VolumeBound``'s state, near/far, occupancy-culled
-sampling in ladder order (``keep_order=True``) with the training jitter,
+per-ray inference sample cap and its windows, the occupancy mask,
+``build_obj_bound``, ``BasicBound`` and ``VolumeBound``'s state, near/far,
+occupancy-culled sampling in ladder order (``keep_order=True``) with the
+training jitter, the window mode of the transmittance-continuation render,
 and ``VolumeBound.optimize``, the occupancy update. Bounds hold static
 geometry only; the occupancy state is an explicit dict of tensors, and the
 draws come from a ``torch.Generator`` (or are fed explicitly by tests).
+
+A bound reads its optim cfgs once, at construction; the JAX package instead
+rebuilds its bound whenever the cfgs change. So whoever edits the obj_bound
+cfgs after construction (``RenderEngine.set_render_cap``) calls
+``refresh_optim_cfgs``, else the bound keeps serving the old values.
 """
 
 import torch
@@ -17,14 +23,18 @@ from ...utils.cfgs import get_value_from_cfgs_field, valid_key_in_cfgs
 from ...utils.registry import BOUND_REGISTRY
 
 
-def _cap_pts_per_ray(mask_pts, inference_only, cap):
+def _cap_pts_per_ray(mask_pts, inference_only, cap, offset=None):
     """At inference keep only the first ``cap`` valid samples per ray,
     front to back (the early-termination analogue; it also bounds a chunk's
-    compacted point count at n_rays * cap)."""
+    compacted point count at n_rays * cap). ``offset`` (an int or None)
+    keeps a later window instead: the valid samples of rank in
+    (offset, offset + cap]."""
     if not inference_only or not cap:
         return mask_pts
     rank = torch.cumsum(mask_pts.to(torch.int32), dim=1)
-    return mask_pts & (rank <= int(cap))
+    if offset is None:
+        return mask_pts & (rank <= int(cap))
+    return mask_pts & (rank > offset) & (rank <= offset + int(cap))
 
 
 def _occ_mask_soa(volume, bitfield, rays_o, rays_d, zvals):
@@ -70,6 +80,10 @@ class BasicBound:
     def get_optim_cfgs(self, key=None):
         return self.optim_cfgs if key is None else self.optim_cfgs[key]
 
+    def refresh_optim_cfgs(self):
+        """Re-read the optim cfgs after an edit of the obj_bound cfgs."""
+        self.optim_cfgs = self.read_optim_cfgs()
+
     def init_state(self, device=None):
         """Occupancy state (empty for unstructured bounds)."""
         return {}
@@ -81,7 +95,8 @@ class BasicBound:
         return near, far, None
 
     def get_zvals_from_near_far(self, state, near, far, n_pts, inference_only=False, inverse_linear=False,
-                                perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False):
+                                perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False,
+                                cap_offset=None):
         """-> zvals (B, n_pts), mask_pts (B, n_pts)|None. With ``perturb``
         outside inference the zvals are jittered from ``generator``."""
         jitter = generator if perturb and not inference_only else None
@@ -115,9 +130,10 @@ class VolumeBound(BasicBound):
         params["ray_sample_fix_step"] = get_value_from_cfgs_field(self.cfgs, "ray_sample_fix_step", False)
         params["near_distance"] = get_value_from_cfgs_field(self.cfgs, "near_distance", 0.0)
         params["eval_max_pts_per_ray"] = get_value_from_cfgs_field(self.cfgs, "eval_max_pts_per_ray", None)
-        if get_value_from_cfgs_field(self.cfgs, "eval_cap_window", False):
-            raise NotImplementedError("windowed rendering (eval_cap_window) is not ported yet "
-                                      "(ROADMAP Queue 1, item 3)")
+        # transmittance-continuation windows (RenderEngine.render_image_windowed):
+        # the cap becomes a rank window, and sampling also returns the
+        # pre-cap occupancy mask to march with
+        params["eval_cap_window"] = get_value_from_cfgs_field(self.cfgs, "eval_cap_window", False)
         return params
 
     def init_state(self, device=None):
@@ -133,7 +149,12 @@ class VolumeBound(BasicBound):
         return near, far, mask[:, 0]
 
     def get_zvals_from_near_far(self, state, near, far, n_pts, inference_only=False, inverse_linear=False,
-                                perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False):
+                                perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False,
+                                cap_offset=None):
+        """As ``BasicBound``'s, with the samples masked by occupancy and, at
+        inference, capped. Window mode engages only with eval_cap_window set,
+        at inference and with a ``cap_offset`` fed: the mask is then the
+        pair (window mask, pre-cap mask)."""
         use_acc = self.get_optim_cfgs("epoch_optim") is not None and self.get_optim_cfgs("ray_sample_acc")
         if not use_acc or "bitfield" not in state:
             return super().get_zvals_from_near_far(state, near, far, n_pts, inference_only, inverse_linear, perturb,
@@ -149,7 +170,12 @@ class VolumeBound(BasicBound):
             zvals = get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear, generator=jitter)
             mask_pts = torch.ones_like(zvals, dtype=torch.bool)
         mask_pts = mask_pts & _occ_mask_soa(self.volume, state["bitfield"], rays_o, rays_d, zvals)
-        return zvals, _cap_pts_per_ray(mask_pts, inference_only, self.get_optim_cfgs("eval_max_pts_per_ray"))
+        window = bool(self.get_optim_cfgs("eval_cap_window")) and inference_only and cap_offset is not None
+        mask_cap = _cap_pts_per_ray(mask_pts, inference_only, self.get_optim_cfgs("eval_max_pts_per_ray"),
+                                    offset=cap_offset if window else None)
+        if window:
+            return zvals, (mask_cap, mask_pts)
+        return zvals, mask_cap
 
     def optimize(self, state, cur_epoch=0, n_pts=128, get_est_opacity=None, generator=None, flat_idx=None,
                  noise_u=None):

@@ -1,12 +1,12 @@
 """Foreground model with a pluggable object bound: sampling, compaction of
 the valid samples into one stream, and compositing on that stream.
 
-Counterpart of ``arcnerf_tpu/models/fg_model.py`` (``__call__``,
-``_compact_sel_aux``, ``_compact_budget``, ``fused_render_by_mask_pts``,
+Counterpart of ``arcnerf_tpu/models/fg_model.py`` (``__call__`` with its
+window mode, ``_compact_sel_aux``, ``_compact_sel``, ``_compact_budget``,
+``get_sigma_radiance_by_mask_pts``, ``fused_render_by_mask_pts``,
 ``update_values_for_invalid_rays``), at inference and in training. The
 training draws (sample jitter, sigma noise) come from a ``torch.Generator``
-passed down from the trainer. The dense scatter-back path
-(``get_sigma_radiance_by_mask_pts`` + ``ray_marching``) is not ported.
+passed down from the trainer. Surface rendering waits for the SDF models.
 """
 
 import torch
@@ -61,13 +61,14 @@ class FgModel(Base3dModel):
 
     # -------------------------------------------------------------- forward
     def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None, generator=None):
-        """Render flat rays: inputs rays_o/rays_d (B, 3) (+ bkg_color (B, 3)).
-        Returns per-ray rgb/depth/mask (suffixed ``_coarse`` in training)
-        and n_valid_pts. In training (``inference_only=False``) the zvals
+        """Render flat rays: inputs rays_o/rays_d (B, 3) (+ bkg_color (B, 3),
+        + cap_offset, an int: the window of the transmittance-continuation
+        render). Returns per-ray rgb/depth/mask (suffixed ``_coarse`` in
+        training), n_valid_pts, the per-sample progress_* tensors with
+        ``get_progress`` and, in window mode, n_win_pts (B,), the samples in
+        each ray's window. In training (``inference_only=False``) the zvals
         are jittered when rays.perturb is set, and sigma noised when
         rays.noise_std > 0, with draws from ``generator``."""
-        if get_progress:
-            raise NotImplementedError("per-sample progress outputs are not ported yet (ROADMAP Queue 1, item 3)")
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
         near, far, mask_rays = self.get_near_far_from_rays(inputs, bound_state)
         near, far = near.detach(), far.detach()
@@ -78,20 +79,32 @@ class FgModel(Base3dModel):
         zvals, mask_pts = self.obj_bound.get_zvals_from_near_far(
             bound_state or {}, near, far, n_coarse, inference_only, self.get_ray_cfgs("inverse_linear"),
             self.get_ray_cfgs("perturb"), generator, rays_o=rays_o, rays_d=rays_d,
-            keep_order=self.use_scattered_masks())
-        inputs = dict(inputs, zvals=zvals.detach(), mask_pts=mask_pts)
+            keep_order=self.use_scattered_masks(), cap_offset=inputs.get("cap_offset"))
+        # window mode: (window mask, pre-cap mask); marching spans gaps with
+        # the pre-cap mask, so consecutive windows compose exactly
+        windowed = isinstance(mask_pts, tuple)
+        inputs = dict(inputs, zvals=zvals.detach())
+        if windowed:
+            mask_pts, inputs["mask_march"] = mask_pts
+        inputs["mask_pts"] = mask_pts
+        inputs["mask_scattered"] = self.use_scattered_masks() and mask_pts is not None
         if mask_pts is not None:
             ray_has_pts = mask_pts.any(dim=1)
             mask_rays = ray_has_pts if mask_rays is None else (mask_rays & ray_has_pts)
 
-        output = self._forward(inputs, inference_only, generator)
+        output = self._forward(inputs, inference_only, get_progress, generator)
         if mask_rays is not None:
-            output = self.update_values_for_invalid_rays(output, mask_rays, inputs.get("bkg_color"))
+            # a window reports a partial integral: rays with an empty window
+            # contribute exactly 0, with no background or depth fill
+            output = self.update_values_for_invalid_rays(output, mask_rays, inputs.get("bkg_color"),
+                                                         zero_fill=windowed)
         if mask_pts is not None:
             output["n_valid_pts"] = mask_pts.sum()
+        if windowed:
+            output["n_win_pts"] = mask_pts.sum(1, dtype=torch.int32)
         return output
 
-    def _forward(self, inputs, inference_only=True, generator=None):
+    def _forward(self, inputs, inference_only=True, get_progress=False, generator=None):
         raise NotImplementedError("implement _forward in the concrete model")
 
     # ----------------------------------------------------------- compaction
@@ -117,6 +130,13 @@ class FgModel(Base3dModel):
         cnt = torch.minimum((budget - off).clamp_min(0), tot)
         return sel, sel_valid, off, cnt
 
+    @staticmethod
+    def _compact_sel(mask_pts, budget):
+        """(sel, sel_valid) of ``_compact_sel_aux``: the flat indices of the
+        first ``budget`` valid samples; rows past the valid count hold 0."""
+        sel, sel_valid, _, _ = FgModel._compact_sel_aux(mask_pts, budget)
+        return sel, sel_valid
+
     def _compact_budget(self, n_rays, inference_only):
         """Compaction budget (obj_bound.log_max_allowance), shrunk at
         inference to the per-ray sample cap when one is set."""
@@ -127,6 +147,32 @@ class FgModel(Base3dModel):
                 budget = min(budget, -(-(n_rays * int(cap)) // 1024) * 1024)
         return budget
 
+    def get_sigma_radiance_by_mask_pts(self, geo_net, radiance_net, rays_o, rays_d, zvals, mask_pts=None,
+                                       inference_only=False):
+        """sigma (B, N) and radiance (B, N, 3) at the (ray, sample) grid: at
+        every sample, or, where a mask and a point budget below B * N apply,
+        at the first ``budget`` valid samples only, scattered back into the
+        grid (the other slots hold 0)."""
+        n_rays, n_pts = zvals.shape
+        total = n_rays * n_pts
+        budget = self._compact_budget(n_rays, inference_only)
+        if not (mask_pts is not None and isinstance(budget, int) and 0 < budget < total):
+            pts = (rays_o[:, None, :] + zvals[..., None] * rays_d[:, None, :]).reshape(-1, 3)
+            dirs = rays_d[:, None, :].expand(n_rays, n_pts, 3).reshape(-1, 3)
+            sigma, radiance = self._forward_pts_dir(geo_net, radiance_net, pts, dirs)
+            return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
+        sel, sel_valid = self._compact_sel(mask_pts, budget)
+        ray_id = sel // n_pts
+        z_sel = zvals.reshape(-1)[sel]
+        d_sel = rays_d[ray_id]
+        pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+        sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
+        # rows past the valid count go to a dump slot past the grid
+        sel_safe = torch.where(sel_valid, sel, total)
+        sigma = sigma_c.new_zeros(total + 1).index_copy(0, sel_safe, sigma_c)[:total]
+        radiance = radiance_c.new_zeros((total + 1, 3)).index_copy(0, sel_safe, radiance_c)[:total]
+        return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
+
     def fused_render_by_mask_pts(self, geo_net, radiance_net, rays_o, rays_d, zvals, mask_pts, inference_only=True,
                                  bkg_color=None, generator=None):
         """Compacted-stream render: evaluate sigma/radiance on the budgeted
@@ -135,12 +181,12 @@ class FgModel(Base3dModel):
         holds them all, which integrates exactly as the JAX package's dense
         path does (it switches to that path there). In training, sigma gets
         N(0, noise_std) noise from ``generator`` when rays.noise_std > 0.
-        Returns {rgb, depth, mask}."""
+        Returns {rgb, depth, mask}, or None where no mask or no point budget
+        applies: the caller then takes the dense path."""
         n_rays, n_pts = zvals.shape
         budget = self._compact_budget(n_rays, inference_only)
         if mask_pts is None or not isinstance(budget, int) or budget <= 0:
-            raise NotImplementedError("the dense sample path (no occupancy mask or no log_max_allowance) is "
-                                      "not ported yet (ROADMAP Queue 1, item 4)")
+            return None
         budget = min(budget, n_rays * n_pts)
         sel, _, off, cnt = self._compact_sel_aux(mask_pts, budget)
         ray_id = sel // n_pts
@@ -161,13 +207,19 @@ class FgModel(Base3dModel):
         return out
 
     # ----------------------------------------------------- invalid-ray fill
-    def update_values_for_invalid_rays(self, output_valid, mask, rand_bkg_color=None):
-        """Fill defaults on rays that miss the bound or keep no sample."""
+    def update_values_for_invalid_rays(self, output_valid, mask, rand_bkg_color=None, zero_fill=False):
+        """Fill defaults on rays that miss the bound or keep no sample; with
+        ``zero_fill`` (a window's partial integral) every output is 0 there."""
         render_cfgs = self.get_render_cfgs()
         output = {}
         for k, v in output_valid.items():
+            if not torch.is_tensor(v):
+                output[k] = v
+                continue
             m = mask.reshape((mask.shape[0],) + (1,) * (v.ndim - 1))
-            if k.startswith("rgb"):
+            if zero_fill:
+                output[k] = torch.where(m, v, 0.0)
+            elif k.startswith("rgb"):
                 if rand_bkg_color is not None:
                     fill = torch.broadcast_to(rand_bkg_color, v.shape)
                 else:
@@ -177,6 +229,8 @@ class FgModel(Base3dModel):
                 output[k] = torch.where(m, v, float(render_cfgs["depth_far"]))
             elif k.startswith("mask"):
                 output[k] = torch.where(m, v, 0.0)
+            elif k.startswith("progress"):
+                output[k] = torch.where(m, v, 1.0 if "trans_shift" in k else 0.0)
             else:
                 output[k] = v
         return output

@@ -1,9 +1,13 @@
 """FullModel: the foreground model over (batch, rays, ...) inputs.
 
 Counterpart of ``arcnerf_tpu/models/full_model.py`` without a background
-model (rgb/sigma blending is not ported yet).
+model (rgb/sigma blending waits for the background models): inputs shaped
+(B, N_rays, ...) are flattened, every other input (a per-chunk scalar such
+as the window's ``cap_offset``) passes through as it is, and outputs are
+shaped back.
 """
 
+import torch
 from torch import nn
 
 from ..utils.cfgs import get_value_from_cfgs_field
@@ -33,12 +37,14 @@ class FullModel(nn.Module):
         batch_size, n_rays = inputs["rays_o"].shape[:2]
         flat = {}
         for k, v in inputs.items():
-            if v is not None and v.ndim >= 2 and v.shape[:2] == (batch_size, n_rays):
+            if torch.is_tensor(v) and v.ndim >= 2 and v.shape[:2] == (batch_size, n_rays):
                 flat[k] = v.reshape((batch_size * n_rays,) + v.shape[2:])
+            elif v is not None:
+                flat[k] = v
         bound_state = bound_state or {}
         output = self.fg_model(flat, inference_only, get_progress, bound_state=bound_state.get("fg", bound_state),
                                generator=generator)
         for k, v in output.items():
-            if v.ndim >= 1 and v.shape[0] == batch_size * n_rays:
+            if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == batch_size * n_rays:
                 output[k] = v.reshape((batch_size, n_rays) + v.shape[1:])
         return output

@@ -1,10 +1,12 @@
-"""Ray generation, z-value sampling with its training jitter, and
-compositing on the compacted stream with kernels C and F.
+"""Ray generation, z-value sampling with its training jitter, compositing
+on the compacted stream with kernels C and F, and dense compositing on the
+(rays, samples) grid.
 
 Counterpart of ``arcnerf_tpu/render/ray_helper.py`` (get_rays,
 get_near_far_from_rays, get_zvals_from_near_far,
 get_zvals_from_near_far_fix_step, perturb_interval,
-perturb_interval_with_mask, segment_march). ``segment_march`` replaces the
+perturb_interval_with_mask, alpha_to_weights, scattered_deltas,
+ray_marching, segment_march). ``segment_march`` replaces the
 JAX scan-and-cumsum formulation with the CUDA kernel in
 ``csrc/segment_march.cu`` and its gradient with ``csrc/segment_march_bwd.cu``;
 ``segment_march_reference`` and ``segment_march_bwd_reference`` are the
@@ -155,6 +157,81 @@ def perturb_interval_with_mask(vals, mask=None, generator=None, rand=None):
     n_valid = (mask.sum(1) - 1).clamp_min(0)
     last_value = vals.gather(1, n_valid[:, None])
     return torch.minimum(torch.maximum(vals, vals[:, 0:1]), last_value)
+
+
+def alpha_to_weights(alpha):
+    """alpha (N_rays, N_p) -> trans_shift (T_i, the transmittance before
+    sample i) and weights (T_i * alpha_i), with T_i = prod_{j<i}(1 - alpha_j
+    + 1e-10) taken as exp(cumsum(log)) as the JAX package takes it; the log's
+    argument is clamped at 1e-10."""
+    logt = torch.log(torch.clamp_min(1.0 - alpha + 1e-10, 1e-10))
+    csum = torch.cumsum(logt, -1)
+    trans_shift = torch.exp(torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], -1))
+    return trans_shift, alpha * trans_shift
+
+
+def scattered_deltas(zvals, mask, inf_tail=False):
+    """Marching deltas for a validity mask anywhere on the ladder: delta_j =
+    z_{nv(j)} - z_j with nv(j) the next valid slot after j, 0 for invalid
+    slots and for the last valid one (1e10 there with ``inf_tail``). zvals
+    ascend along each ray, so the next valid z is a reverse cummin of the
+    masked z."""
+    inf = torch.full_like(zvals[:, :1], torch.inf)
+    zm = torch.where(mask, zvals, torch.inf)
+    rc = torch.cummin(zm.flip(1), dim=1).values.flip(1)  # min over k >= j
+    z_nv = torch.cat([rc[:, 1:], inf], 1)
+    has_next = torch.isfinite(z_nv)
+    deltas = torch.where(mask & has_next, z_nv - zvals, 0.0)
+    deltas = torch.where(deltas.abs() < 1e-5, 0.0, deltas)
+    if inf_tail:
+        deltas = torch.where(mask & ~has_next, 1e10, deltas)
+    return deltas
+
+
+def ray_marching(sigma, radiance, zvals, add_inf_z=False, noise_std=0.0, white_bkg=False, bkg_color=None,
+                 generator=None, mask_pts=None):
+    """Alpha compositing along each ray of the dense (N_rays, N_pts) grid.
+
+    alpha_i = 1 - exp(-relu(sigma_i) delta_i), T_i = prod_{j<i}(1 - alpha_j),
+    rgb = sum_i T_i alpha_i c_i. With ``add_inf_z`` a 1e10 tail delta keeps all
+    N_pts; otherwise the last sample is dropped. With ``mask_pts`` (N_rays,
+    N_pts bool) the valid samples may sit anywhere on the ladder: deltas span
+    to the next valid sample (``scattered_deltas``), invalid slots get alpha
+    0, and all N_pts slots are kept. ``noise_std`` > 0 adds N(0, noise_std)
+    to sigma, drawn from ``generator``. ``bkg_color`` (3,) or (N_rays, 3) is
+    composited with the last T; else ``white_bkg`` fills 1 - mask.
+
+    Returns rgb (N_rays, 3), depth, mask (N_rays,) and sigma, radiance,
+    zvals, alpha, trans_shift, weights at the marching length."""
+    n_rays = zvals.shape[0]
+    _sigma, _radiance, _zvals = sigma, radiance, zvals
+    if mask_pts is not None:
+        deltas = scattered_deltas(zvals, mask_pts, inf_tail=add_inf_z)
+    else:
+        deltas = zvals[:, 1:] - zvals[:, :-1]
+        deltas = torch.where(deltas.abs() < 1e-5, 0.0, deltas)
+        if add_inf_z:
+            deltas = torch.cat([deltas, torch.full((n_rays, 1), 1e10, dtype=zvals.dtype, device=zvals.device)], -1)
+        else:
+            _sigma, _radiance, _zvals = sigma[:, :-1], radiance[:, :-1], zvals[:, :-1]
+
+    noise = 0.0
+    if noise_std > 0.0 and generator is not None:
+        noise = torch.randn(_sigma.shape, generator=generator, dtype=zvals.dtype, device=zvals.device) * noise_std
+    # clamped so that an overflowed density gives alpha 1 and no NaN
+    s = torch.clamp_max(torch.relu(_sigma + noise), 1e10)
+    alpha = 1.0 - torch.exp(-s * deltas)
+
+    trans_shift, weights = alpha_to_weights(alpha)
+    depth = (weights * _zvals).sum(-1)
+    mask = weights.sum(-1)
+    rgb = (weights[..., None] * _radiance).sum(-2)
+    if bkg_color is not None:
+        rgb = rgb + trans_shift[:, -1:] * bkg_color
+    elif white_bkg:
+        rgb = rgb + (1.0 - mask[:, None])
+    return {"rgb": rgb, "depth": depth, "mask": mask, "sigma": _sigma, "radiance": _radiance, "zvals": _zvals,
+            "alpha": alpha, "trans_shift": trans_shift, "weights": weights}
 
 
 # Kernel C's lanes a ray (csrc/segment_march.cu): 32 where no per-ray cap

@@ -23,12 +23,16 @@ device tensor, and an explicit occupancy state dict:
   scan_steps 1 every step runs eagerly (``train_step``);
 - the dynamic batch size reads the measured valid-sample counts on the
   host only at its update cadence; nothing else syncs per step;
-- validation renders through the serving path (``RenderEngine``).
+- validation renders through the serving path (``RenderEngine``), whose
+  render tiers the trainer also hands on (``set_render_cap``,
+  ``render_image_fast``, ``render_image_interactive``,
+  ``render_image_windowed``), each with ``eval_params``.
 
 Options this slice does not port raise NotImplementedError naming their
 ROADMAP item.
 """
 
+import contextlib
 import math
 import os
 import time
@@ -355,23 +359,47 @@ class ArcNerfTrainer:
             return None
         return max(1, (1 << self.log_max_allowance) // int(self.n_coarse))
 
-    @torch.no_grad()
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """The model holds ``eval_params`` (and the engine the live occupancy
+        state) inside the block; the live parameters come back after it."""
+        self.engine.bound_state = self.bound_state
+        if self.ema is None:
+            yield
+            return
+        with torch.no_grad():
+            live = {k: v.detach().clone() for k, v in self.model.named_parameters()}
+            params = dict(self.model.named_parameters())
+            for k, v in self.eval_params().items():
+                params[k].copy_(v)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for k, v in live.items():
+                    params[k].copy_(v)
+
     def render_image(self, sample, bkg_color=None):
         """Render a dataset sample through the serving path with
         ``eval_params`` and the live occupancy state, in clip-free chunks."""
-        self.engine.bound_state = self.bound_state
-        chunk = self._val_chunk_rays()
-        if self.ema is None:
-            return self.engine.render_image(sample, chunk, bkg_color=bkg_color)
-        live = {k: v.detach().clone() for k, v in self.model.named_parameters()}
-        params = dict(self.model.named_parameters())
-        for k, v in self.eval_params().items():
-            params[k].copy_(v)
-        try:
-            return self.engine.render_image(sample, chunk, bkg_color=bkg_color)
-        finally:
-            for k, v in live.items():
-                params[k].copy_(v)
+        with self._eval_weights():
+            return self.engine.render_image(sample, self._val_chunk_rays(), bkg_color=bkg_color)
+
+    # the render tiers, delegated to the RenderEngine with eval_params
+    def set_render_cap(self, cap, n_sample=None, window=False):
+        return self.engine.set_render_cap(cap, n_sample=n_sample, window=window)
+
+    def render_image_fast(self, sample, **kwargs):
+        with self._eval_weights():
+            return self.engine.render_image_fast(sample, **kwargs)
+
+    def render_image_interactive(self, sample, **kwargs):
+        with self._eval_weights():
+            return self.engine.render_image_interactive(sample, **kwargs)
+
+    def render_image_windowed(self, sample, **kwargs):
+        with self._eval_weights():
+            return self.engine.render_image_windowed(sample, **kwargs)
 
     def valid_epoch(self, epoch, mode="val"):
         """Render the split's first progress.max_samples_val images; log and

@@ -54,7 +54,24 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    all launched, that one batch's loss and gradients match the plain path
    on the CPU, and that the held-out view renders at >= 20 dB PSNR through
    the serving path; prints the ray bucket, valid samples per ray and peak
-   memory, then times 100 more steps (CUDA events: ms/step, rays/s), and
+   memory. The tiers phase then renders an 800x800 held-out view of the
+   trained model through the trainer's render tiers, with the eval
+   background, under bench.py's serving keys: exact at cap 16
+   (``render``), ``render_compact`` (fast, cap 16, hit_frac 0.42),
+   ``render_fast`` (cap 4), ``render_interactive`` (cap 4, 64 steps, scale
+   3), ``render_windowed_s1`` and ``_s2`` (windows of 8 samples, eps 1e-3,
+   the counted ladder of 512 / 8 passes): for each a warm-up and 3 timed
+   frames (median, host clock around torch.cuda.synchronize()), PSNR
+   against the exact frame, stats, peak memory and the launches of A-C a
+   frame (A and B in every tier, C in all but the windowed ones). Gates:
+   finite (800, 800, ...) images; fast at hit_frac 1.0 against exact (rgb
+   max abs <= 5e-2); windows at eps 0 against the uncapped render of the
+   4096-ray crop (<= 1e-3); windowed s1 >= 40 dB against the uncapped
+   frame (both uncapped renders in clip-free chunks of 512 rays); no alive
+   ray clipped. Then one torch.profiler pass over a windowed s1 frame, and
+   ``python -m arcnerf_torch.inference`` from the run's checkpoint (a circle
+   of 4 cameras at 200x200; its log must show every frame finite). Then
+   the training run times 100 more steps (CUDA events: ms/step, rays/s), and
    captures the streams kernels E and F receive in one more step (E's
    valid and padding rows are printed). With --profile, also profiles 4
    more steps (torch.profiler) and prints the device-time split (by kernel
@@ -1330,12 +1347,172 @@ def train(profile=False):
         TRAIN_STEPS, val["psnr"], val["ssim"], PSNR_FLOOR))
     if not val["psnr"] >= PSNR_FLOOR:
         raise AssertionError("training: held-out PSNR {} below {}".format(val["psnr"], PSNR_FLOOR))
+    tiers(trainer)
+    run_inference(os.path.join(trainer.ckpt_dir, "final.pt"))
     steady_steps(trainer)
     stream = capture_training_streams(trainer)
     if profile:
         profile_steps(trainer)
     shutil.rmtree(expr)
     return launches, stream, val["psnr"]
+
+
+# the tiers phase: bench.py's serving keys on an 800x800 held-out view of
+# the trained model. (key, cap, ladder, tier, keyword arguments)
+TIER_RUNS = 3
+TIERS = (("render", 16, None, "exact", {}),
+         ("render_compact", 16, None, "fast", {"hit_frac": 0.42}),
+         ("render_fast", 4, None, "fast", {"hit_frac": 0.42}),
+         ("render_interactive", 4, 64, "interactive", {"hit_frac": 0.42, "scale": 3}),
+         ("render_windowed_s1", 8, None, "windowed", {"n_pass": 512 // 8, "eps": 1e-3, "scale": 1}),
+         ("render_windowed_s2", 8, None, "windowed", {"n_pass": 512 // 8, "eps": 1e-3, "scale": 2}))
+# fast with nothing clipped against exact (tests/test_render_cap.py's bound);
+# windows at eps 0 against the uncapped render of the crop; windowed s1 at
+# eps 1e-3 against the uncapped frame; both uncapped renders in chunks of
+# 512 rays x 512 samples, the 2^18 point budget, so that no chunk clips
+FAST_EXACT_TOL, WINDOW_EXACT_TOL, WINDOW_PSNR_FLOOR, UNCAPPED_CHUNK = 5e-2, 1e-3, 40.0, 512
+
+
+def psnr_db(a, b):
+    return float(-10.0 * torch.log10(((a.float() - b.float()) ** 2).mean().clamp_min(1e-12)))
+
+
+def check_frame(key, imgs):
+    for k, v in imgs.items():
+        if tuple(v.shape[:2]) != (800, 800) or not bool(torch.isfinite(v).all()):
+            raise AssertionError("{}: {} is not a finite (800, 800, ...) image: {}".format(key, k, tuple(v.shape)))
+
+
+def tiers(trainer):
+    """The serving tiers on an 800x800 held-out Synthetic view of the
+    trained model through the trainer's delegates (eval background): for
+    each tier of TIERS a warm-up and TIER_RUNS timed frames (median, host
+    clock around torch.cuda.synchronize()), PSNR against the exact cap-16
+    frame, stats, peak memory and the launches of A-C a frame; then the
+    gates, and one torch.profiler pass over a windowed s1 frame. Returns
+    the numbers it printed."""
+    from arcnerf_torch.datasets import get_dataset
+    from arcnerf_torch.utils.cfgs import dict_to_obj
+
+    sample = get_dataset(dict_to_obj({"val": {"type": "Synthetic", "n_imgs": 1, "wh": [800, 800], "cam_radius": 2.5,
+                                              "white_bkg": True, "center_pixel": True}}), "data", "val")[0]
+    bkg = trainer.eval_bkg_color("val")
+    renders = {"exact": lambda **kw: (trainer.render_image(sample, bkg_color=bkg), {}),
+               "fast": lambda **kw: trainer.render_image_fast(sample, bkg_color=bkg, **kw),
+               "interactive": lambda **kw: trainer.render_image_interactive(sample, bkg_color=bkg, **kw),
+               "windowed": lambda **kw: trainer.render_image_windowed(sample, bkg_color=bkg, **kw)}
+    numbers, exact = {}, None
+    for key, cap, n_sample, tier, kwargs in TIERS:
+        trainer.set_render_cap(cap, n_sample=n_sample, window=tier == "windowed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        imgs, stats = renders[tier](**kwargs)  # warm-up
+        times = []
+        for _ in range(TIER_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs, stats = renders[tier](**kwargs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {k: v / (TIER_RUNS + 1) for k, v in read_launches("ABC").items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check_frame(key, imgs)
+        if exact is None:
+            exact = imgs["rgb"]
+        need = "ABC" if tier != "windowed" else "AB"
+        if min(launches[k] for k in need) <= 0:
+            raise AssertionError("{}: a kernel of the tier never launched: {}".format(key, launches))
+        if tier == "windowed" and stats["clipped_alive"] != 0:
+            raise AssertionError("{}: {} alive rays clipped".format(key, stats["clipped_alive"]))
+        numbers[key] = {"ms": statistics.median(times) * 1e3, "runs_ms": [t * 1e3 for t in times],
+                        "psnr_vs_exact": psnr_db(imgs["rgb"], exact), "peak_mib": peak, "launches": launches,
+                        "stats": stats}
+        print("tier {}: median {:.2f} ms (runs {}), PSNR vs exact cap-16 {:.3f} dB, peak {:.0f} MiB, launches a "
+              "frame {}, stats {}".format(key, numbers[key]["ms"], ", ".join("{:.2f}".format(t * 1e3) for t in times),
+                                          numbers[key]["psnr_vs_exact"], peak, launches, stats))
+
+    # fast with room for every hit ray renders the exact frame
+    trainer.set_render_cap(16)
+    fast, stats = trainer.render_image_fast(sample, bkg_color=bkg, hit_frac=1.0)
+    err = float((fast["rgb"] - exact).abs().max())
+    print("gate: fast (cap 16, hit_frac 1.0, {} clipped) vs exact: rgb max abs {:.3e} (tol {})".format(
+        stats["clipped_rays"], err, FAST_EXACT_TOL))
+    if stats["clipped_rays"] or err > FAST_EXACT_TOL:
+        raise AssertionError("fast with nothing clipped disagrees with the exact frame: {}".format(err))
+    # windows at eps 0 compose the uncapped render: the 4096-ray crop of serve()
+    crop = slice(400 * 800, 400 * 800 + 4096)
+    sub = {"rays_o": sample["rays_o"][crop], "rays_d": sample["rays_d"][crop], "H": 1, "W": 4096}
+    trainer.set_render_cap(None)
+    uncapped_crop = trainer.render_image(sub, bkg_color=bkg)  # the trainer's clip-free chunk: 512 rays
+    trainer.set_render_cap(8, window=True)
+    win, stats = trainer.render_image_windowed(sub, bkg_color=bkg, n_pass=512 // 8, eps=0.0)
+    err = float((win["rgb"] - uncapped_crop["rgb"]).abs().max())
+    print("gate: windowed (eps 0, {} passes, {} alive at the end) vs uncapped on the crop: rgb max abs {:.3e} "
+          "(tol {})".format(1 + len(stats["pass_budget_rays"]), stats["alive_at_end"], err, WINDOW_EXACT_TOL))
+    if stats["clipped_alive"] or stats["alive_at_end"] or err > WINDOW_EXACT_TOL:
+        raise AssertionError("windows at eps 0 disagree with the uncapped render: {} {}".format(err, stats))
+    # windowed s1 against the uncapped frame
+    trainer.set_render_cap(None)
+    if trainer._val_chunk_rays() != UNCAPPED_CHUNK:
+        raise AssertionError("the uncapped render's chunk is {} rays".format(trainer._val_chunk_rays()))
+    t0 = time.perf_counter()
+    uncapped = trainer.render_image(sample, bkg_color=bkg)
+    torch.cuda.synchronize()
+    uncapped_s = time.perf_counter() - t0
+    check_frame("uncapped", uncapped)
+    trainer.set_render_cap(8, window=True)
+    kwargs = TIERS[4][4]
+    win, stats = trainer.render_image_windowed(sample, bkg_color=bkg, **kwargs)
+    p_win, p_exact = psnr_db(win["rgb"], uncapped["rgb"]), psnr_db(exact, uncapped["rgb"])
+    print("gate: windowed s1 vs the uncapped frame ({:.1f} ms in {}-ray chunks): {:.3f} dB (floor {}); exact "
+          "cap-16 vs uncapped {:.3f} dB".format(uncapped_s * 1e3, UNCAPPED_CHUNK, p_win, WINDOW_PSNR_FLOOR, p_exact))
+    if p_win < WINDOW_PSNR_FLOOR:
+        raise AssertionError("windowed s1: {} dB against the uncapped frame".format(p_win))
+    numbers["render_windowed_s1"]["psnr_vs_uncapped"] = p_win
+    numbers["render"]["psnr_vs_uncapped"] = p_exact
+
+    # where a windowed frame's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.render_image_windowed(sample, bkg_color=bkg, **kwargs)
+        torch.cuda.synchronize()
+    device_split(prof, 1, "profile of one windowed s1 frame", unit="frame")
+    trainer.set_render_cap(None)
+    torch.cuda.empty_cache()
+    return numbers
+
+
+INFER_CAMS, INFER_WH = 4, 200
+
+
+def run_inference(ckpt):
+    """``python -m arcnerf_torch.inference`` on the card from the trained
+    checkpoint: a circle of INFER_CAMS cameras at INFER_WH x INFER_WH; checks
+    that every frame is finite and written."""
+    out = os.path.join(OUT_DIR, "inference")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = [sys.executable, "-m", "arcnerf_torch.inference", "--configs",
+            os.path.join(ROOT, "configs/expr/synthetic_ngp.yaml"), "--model_pt", ckpt, "--device", "cuda:0",
+            "--dir.eval_dir", out, "--dataset.val.wh", "[{0},{0}]".format(INFER_WH), "--inference.render.type",
+            "circle", "--inference.render.n_cam", str(INFER_CAMS), "--inference.render.radius", "2.5",
+            "--inference.render.bkg_color", "[1.0,1.0,1.0]"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError("python -m arcnerf_torch.inference failed:\n" + proc.stderr[-4000:])
+    with open(os.path.join(out, "infer.log")) as f:
+        log = f.read()
+    video = os.path.join(out, "render_circle")
+    frames = sorted(os.listdir(video)) if os.path.isdir(video) else []
+    if not os.path.exists(video + ".mp4") and len(frames) != INFER_CAMS:
+        raise AssertionError("inference wrote neither render_circle.mp4 nor {} frames: {}".format(INFER_CAMS, frames))
+    finite = "circle: {0} frames of {1}x{1}, all finite True".format(INFER_CAMS, INFER_WH)
+    if finite not in log:
+        raise AssertionError("inference frames: expected '{}' in the log:\n{}".format(finite, log))
+    print("inference: {:.1f} s, {}; {}".format(time.perf_counter() - t0, finite,
+                                              log.strip().splitlines()[-1].split("| ")[-1]))
 
 
 def steady_steps(trainer, n=STEADY_STEPS):
@@ -1409,9 +1586,9 @@ def profile_steps(trainer, n=4):
     device_split(prof, n, "profile of {} steps".format(n))
 
 
-def device_split(prof, n, label):
+def device_split(prof, n, label, unit="step"):
     """Print a profile's device busy time and idle share, its kernels by
-    name and each of A-F per step, over n steps; returns the calls by
+    name and each of A-F per ``unit``, over n of them; returns the calls by
     kernel name, or None when the profile holds no device event."""
     spans = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False))
@@ -1433,7 +1610,7 @@ def device_split(prof, n, label):
     print("{}: device busy {:.2f} ms of a {:.2f} ms span ({:.1f} % idle), {} kernels".format(
         label, busy / 1e3, span / 1e3, 100.0 * (1 - busy / span), len(spans)))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
-        print("  {:8.3f} ms/step {:5.1f} %  {}".format(us / 1e3 / n, 100.0 * us / total, name[:110]))
+        print("  {:8.3f} ms/{} {:5.1f} %  {}".format(us / 1e3 / n, unit, 100.0 * us / total, name[:110]))
     split = []
     for key, parts in PROFILE_KERNELS.items():
         names = [name for name in by_name if any(p in name for p in parts)]
@@ -1442,7 +1619,7 @@ def device_split(prof, n, label):
     adam = [name for name in by_name if "adam" in name.lower()]
     split.append("Adam {:.3f} ms ({:.2f} launches)".format(sum(by_name[m] for m in adam) / 1e3 / n,
                                                           sum(calls[m] for m in adam) / n))
-    print(label + " per step by kernel: " + ", ".join(split))
+    print(label + " per {} by kernel: ".format(unit) + ", ".join(split))
     return calls
 
 

@@ -1025,3 +1025,64 @@ def test_graph_capture_failure_raises(dev, tmp_path):
     step = trainer.step_graphs[(256, None)]
     assert step.graph is None and trainer.step == 0
     assert int(step.slot) == 1  # the bucket's eager warm-up step ran; no other
+
+
+# the render tiers on the card: the NGP recipe at a small size with seeded
+# weights and the spheres' occupancy, a 32x32 view
+TIER_ARGV = ["--model.geometry.encoder.hashmap_size", "14", "--model.obj_bound.volume.n_grid", "32",
+             "--model.rays.n_sample", "64", "--model.obj_bound.log_max_allowance", "14"]
+TIER_CHUNK = 256  # 256 rays x 64 samples fill the 2^14 budget: no chunk clips
+FAST_TOL, WINDOW_TOL = 5e-2, 1e-3  # fast against exact (the JAX test's bound); windows against uncapped
+
+
+def _tier_engine(device):
+    import os
+
+    from arcnerf_torch.datasets import get_dataset
+    from arcnerf_torch.datasets.synthetic_dataset import sphere_scene_bitfield
+    from arcnerf_torch.models import build_model
+    from arcnerf_torch.render.engine import RenderEngine
+    from arcnerf_torch.utils.cfgs import dict_to_obj, load_configs, update_configs_by_dotlist
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfgs = update_configs_by_dotlist(load_configs(os.path.join(root, "configs/expr/synthetic_ngp.yaml")), TIER_ARGV)
+    model = build_model(cfgs, generator=torch.Generator().manual_seed(0)).to(device).eval()
+    bound = model.init_bound_state(device)
+    bound["fg"]["bitfield"] = torch.from_numpy(sphere_scene_bitfield(32, 2.0)).to(device)
+    sample = get_dataset(dict_to_obj({"val": {"type": "Synthetic", "n_imgs": 1, "wh": [32, 32], "cam_radius": 2.5,
+                                              "white_bkg": True, "center_pixel": True}}), "data", "val")[0]
+    return RenderEngine(model, cfgs, bound, device), sample
+
+
+def test_render_tiers_fast_matches_exact_on_the_card(dev):
+    engine, sample = _tier_engine(dev)
+    engine.set_render_cap(8)
+    exact = engine.render_image(sample, chunk_rays=TIER_CHUNK, bkg_color=(1.0, 1.0, 1.0))
+    counts = (fused_mlp.launches, hash_encode.launches, segment_march.launches)
+    fast, stats = engine.render_image_fast(sample, chunk_rays=TIER_CHUNK, hit_frac=1.0, bkg_color=(1.0, 1.0, 1.0))
+    assert fast["rgb"].is_cuda and stats["clipped_rays"] == 0 and 0.0 < stats["hit_frac"] < 1.0
+    assert fused_mlp.launches > counts[0] and hash_encode.launches > counts[1] and segment_march.launches > counts[2]
+    assert float((fast["rgb"] - exact["rgb"]).abs().max()) <= FAST_TOL
+    # the card's kernels against the plain versions on the CPU, same tier
+    cpu_engine, _ = _tier_engine("cpu")
+    cpu_engine.set_render_cap(8)
+    cpu, cpu_stats = cpu_engine.render_image_fast(sample, chunk_rays=TIER_CHUNK, hit_frac=1.0,
+                                                  bkg_color=(1.0, 1.0, 1.0))
+    assert cpu_stats == stats
+    d_rgb = (fast["rgb"].cpu() - cpu["rgb"]).abs()
+    assert float(d_rgb.max()) <= 2e-2 and float(d_rgb.mean()) <= 1e-3
+
+
+def test_render_tiers_windowed_matches_uncapped_on_the_card(dev):
+    engine, sample = _tier_engine(dev)
+    engine.set_render_cap(None)
+    full = engine.render_image(sample, chunk_rays=TIER_CHUNK, bkg_color=(1.0, 1.0, 1.0))
+    engine.set_render_cap(8, window=True)
+    counts = (fused_mlp.launches, hash_encode.launches)
+    win, stats = engine.render_image_windowed(sample, n_pass=8, chunk_rays=TIER_CHUNK, bkg_color=(1.0, 1.0, 1.0),
+                                              eps=0.0)
+    assert win["rgb"].is_cuda and stats["clipped_alive"] == 0 and stats["alive_at_end"] == 0
+    assert len(stats["pass_budget_rays"]) >= 1
+    assert fused_mlp.launches > counts[0] and hash_encode.launches > counts[1]
+    for k in ("rgb", "depth", "mask"):
+        assert float((win[k] - full[k]).abs().max()) <= WINDOW_TOL * (4 if k == "depth" else 1), k

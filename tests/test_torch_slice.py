@@ -132,6 +132,7 @@ def test_port_imports_without_jax():
         "import arcnerf_torch.ops.gather_scatter, arcnerf_torch.tools.roofline_hashgrid\n"
         "import arcnerf_torch.tools.probe_gather, arcnerf_torch.tools.probe_scatter\n"
         "import arcnerf_torch.tools.probe_cons_forms, arcnerf_torch.tools.ab_step\n"
+        "import arcnerf_torch.evaluation.infer_func, arcnerf_torch.inference\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'arcnerf_tpu')\n"
         "       and sys.modules[m] is not None]\n"
