@@ -3,6 +3,7 @@
 Usage:
     python -m arcnerf_torch.inference --configs <cfg.yaml> --model_pt <port checkpoint> [--device cuda:0]
         [--inference.render.type circle --inference.render.n_cam 20 ...] [--dotted.overrides ...]
+        [--trace <trace.json>]
 
 Renders a novel-view video for each camera path of ``inference.render``
 (circle, spiral, swing, regular, random or a custom json path) on
@@ -14,8 +15,12 @@ else numbered PNG frames. The checkpoint is one written by
 ``scripts/export_jax_ckpt_to_torch.py``'s from a JAX checkpoint).
 Point-cloud and mesh extraction (``inference.volume``) and the
 surface-render video are not ported and raise NotImplementedError.
+``--trace <path>`` records the renders' spans and counters
+(``utils.profiler``) and writes them to ``path`` as a Chrome trace on the
+clock of ``torch.profiler``'s events.
 """
 
+import argparse
 import os
 import sys
 
@@ -25,12 +30,16 @@ from .datasets import get_dataset
 from .evaluate import load_for_eval
 from .evaluation.infer_func import Inferencer
 from .render.engine import RenderEngine
+from .utils import profiler
 from .utils.cfgs import get_value_from_cfgs_field, parse_configs, valid_key_in_cfgs
 from .utils.logger import Logger
 
 
 def main(argv=None):
-    cfgs = parse_configs(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--trace", default=None, help="write the renders' spans and counters here (Chrome trace)")
+    known, rest = parser.parse_known_args(sys.argv[1:] if argv is None else argv)
+    cfgs = parse_configs(rest)
     device = torch.device(get_value_from_cfgs_field(cfgs, "device", "cuda:0"))
     out_dir = get_value_from_cfgs_field(cfgs.dir, "eval_dir", None) if hasattr(cfgs, "dir") else None
     out_dir = out_dir or os.path.join("results", get_value_from_cfgs_field(cfgs, "name", "infer"))
@@ -55,7 +64,15 @@ def main(argv=None):
 
     model, bound_state = load_for_eval(cfgs, device, logger)
     engine = RenderEngine(model, cfgs, bound_state, device)
-    results = inferencer.run_infer(engine, out_dir)
+    if known.trace:
+        profiler.enable()
+    try:
+        results = inferencer.run_infer(engine, out_dir)
+    finally:
+        if known.trace:
+            profiler.disable()
+            profiler.write_chrome_trace(profiler.collect(), known.trace)
+            logger.add_log("wrote the spans and counters to {}".format(known.trace))
     print("Inference done:", results)
     return results
 

@@ -14,6 +14,7 @@ from torch import nn
 
 from ..geometry.transformation import normalize
 from ..render.ray_helper import ray_marching
+from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
 
 PROGRESS_KEYS = ("sigma", "zvals", "alpha", "trans_shift", "weights", "radiance")
@@ -85,8 +86,9 @@ class Base3dModel(nn.Module):
     @staticmethod
     def _forward_pts_dir(geo_net, radiance_net, pts, rays_d):
         """(B, 3), (B, 3) -> sigma (B,), radiance (B, 3)."""
-        geo, feat = geo_net(pts)
-        radiance = radiance_net(pts, rays_d, None, feat)
+        with profiler.span("model.field"):
+            geo, feat = geo_net(pts)
+            radiance = radiance_net(pts, rays_d, None, feat)
         return geo[..., 0], radiance
 
     def forward_pts_dir(self, pts, view_dir=None):
@@ -103,7 +105,8 @@ class Base3dModel(nn.Module):
     def forward_pts(self, pts):
         """Direct geometry query: (N, 3) -> sigma (N,)."""
         geo_net, _ = self.get_net()
-        return geo_net(pts)[0][..., 0]
+        with profiler.span("model.field"):
+            return geo_net(pts)[0][..., 0]
 
     def get_est_opacity(self, dt, pts):
         """opacity ~= sigma * dt (the instant-ngp convention)."""

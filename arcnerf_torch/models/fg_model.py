@@ -12,6 +12,7 @@ passed down from the trainer. Surface rendering waits for the SDF models.
 import torch
 
 from ..render.ray_helper import march_group, segment_march
+from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
 from ..utils.device_consts import device_constant
 from .base_3d_model import Base3dModel
@@ -70,27 +71,28 @@ class FgModel(Base3dModel):
         are jittered when rays.perturb is set, and sigma noised when
         rays.noise_std > 0, with draws from ``generator``."""
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
-        near, far, mask_rays = self.get_near_far_from_rays(inputs, bound_state)
-        near, far = near.detach(), far.detach()
-        n_coarse = self.get_ray_cfgs("n_sample")
-        if inference_only:
-            # the inference ladder may be coarser than training's (eval_n_sample)
-            n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
-        zvals, mask_pts = self.obj_bound.get_zvals_from_near_far(
-            bound_state or {}, near, far, n_coarse, inference_only, self.get_ray_cfgs("inverse_linear"),
-            self.get_ray_cfgs("perturb"), generator, rays_o=rays_o, rays_d=rays_d,
-            keep_order=self.use_scattered_masks(), cap_offset=inputs.get("cap_offset"))
-        # window mode: (window mask, pre-cap mask); marching spans gaps with
-        # the pre-cap mask, so consecutive windows compose exactly
-        windowed = isinstance(mask_pts, tuple)
-        inputs = dict(inputs, zvals=zvals.detach())
-        if windowed:
-            mask_pts, inputs["mask_march"] = mask_pts
-        inputs["mask_pts"] = mask_pts
-        inputs["mask_scattered"] = self.use_scattered_masks() and mask_pts is not None
-        if mask_pts is not None:
-            ray_has_pts = mask_pts.any(dim=1)
-            mask_rays = ray_has_pts if mask_rays is None else (mask_rays & ray_has_pts)
+        with profiler.span("model.sample"):
+            near, far, mask_rays = self.get_near_far_from_rays(inputs, bound_state)
+            near, far = near.detach(), far.detach()
+            n_coarse = self.get_ray_cfgs("n_sample")
+            if inference_only:
+                # the inference ladder may be coarser than training's (eval_n_sample)
+                n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
+            zvals, mask_pts = self.obj_bound.get_zvals_from_near_far(
+                bound_state or {}, near, far, n_coarse, inference_only, self.get_ray_cfgs("inverse_linear"),
+                self.get_ray_cfgs("perturb"), generator, rays_o=rays_o, rays_d=rays_d,
+                keep_order=self.use_scattered_masks(), cap_offset=inputs.get("cap_offset"))
+            # window mode: (window mask, pre-cap mask); marching spans gaps with
+            # the pre-cap mask, so consecutive windows compose exactly
+            windowed = isinstance(mask_pts, tuple)
+            inputs = dict(inputs, zvals=zvals.detach())
+            if windowed:
+                mask_pts, inputs["mask_march"] = mask_pts
+            inputs["mask_pts"] = mask_pts
+            inputs["mask_scattered"] = self.use_scattered_masks() and mask_pts is not None
+            if mask_pts is not None:
+                ray_has_pts = mask_pts.any(dim=1)
+                mask_rays = ray_has_pts if mask_rays is None else (mask_rays & ray_has_pts)
 
         output = self._forward(inputs, inference_only, get_progress, generator)
         if mask_rays is not None:
@@ -161,16 +163,20 @@ class FgModel(Base3dModel):
             dirs = rays_d[:, None, :].expand(n_rays, n_pts, 3).reshape(-1, 3)
             sigma, radiance = self._forward_pts_dir(geo_net, radiance_net, pts, dirs)
             return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
-        sel, sel_valid = self._compact_sel(mask_pts, budget)
-        ray_id = sel // n_pts
-        z_sel = zvals.reshape(-1)[sel]
-        d_sel = rays_d[ray_id]
-        pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+        with profiler.span("model.compact"):
+            sel, sel_valid = self._compact_sel(mask_pts, budget)
+            ray_id = sel // n_pts
+            z_sel = zvals.reshape(-1)[sel]
+            d_sel = rays_d[ray_id]
+            pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+            if inference_only and profiler.active():  # training counts its steps outside the captured step
+                profiler.count_compact(mask_pts.sum(), budget)
         sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
-        # rows past the valid count go to a dump slot past the grid
-        sel_safe = torch.where(sel_valid, sel, total)
-        sigma = sigma_c.new_zeros(total + 1).index_copy(0, sel_safe, sigma_c)[:total]
-        radiance = radiance_c.new_zeros((total + 1, 3)).index_copy(0, sel_safe, radiance_c)[:total]
+        with profiler.span("model.compact"):
+            # rows past the valid count go to a dump slot past the grid
+            sel_safe = torch.where(sel_valid, sel, total)
+            sigma = sigma_c.new_zeros(total + 1).index_copy(0, sel_safe, sigma_c)[:total]
+            radiance = radiance_c.new_zeros((total + 1, 3)).index_copy(0, sel_safe, radiance_c)[:total]
         return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
 
     def fused_render_by_mask_pts(self, geo_net, radiance_net, rays_o, rays_d, zvals, mask_pts, inference_only=True,
@@ -188,11 +194,14 @@ class FgModel(Base3dModel):
         if mask_pts is None or not isinstance(budget, int) or budget <= 0:
             return None
         budget = min(budget, n_rays * n_pts)
-        sel, _, off, cnt = self._compact_sel_aux(mask_pts, budget)
-        ray_id = sel // n_pts
-        z_sel = zvals.reshape(-1)[sel]
-        d_sel = rays_d[ray_id]
-        pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+        with profiler.span("model.compact"):
+            sel, _, off, cnt = self._compact_sel_aux(mask_pts, budget)
+            ray_id = sel // n_pts
+            z_sel = zvals.reshape(-1)[sel]
+            d_sel = rays_d[ray_id]
+            pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+            if inference_only and profiler.active():  # training counts its steps outside the captured step
+                profiler.count_compact(mask_pts.sum(), budget)
 
         sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
         noise = None
@@ -201,8 +210,10 @@ class FgModel(Base3dModel):
             noise = torch.randn(sigma_c.shape, generator=generator, device=sigma_c.device) * noise_std
         # kernel C's lanes a ray: the serving cap keeps every segment short
         group = march_group(self.get_render_cfgs("eval_max_pts_per_ray") if inference_only else None)
-        out = segment_march(sigma_c, radiance_c, z_sel, off, cnt, add_inf_z=self.get_ray_cfgs("add_inf_z"),
-                            white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise, group=group)
+        with profiler.span("model.march"):
+            out = segment_march(sigma_c, radiance_c, z_sel, off, cnt, add_inf_z=self.get_ray_cfgs("add_inf_z"),
+                                white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise,
+                                group=group)
         out.pop("trans_end")
         return out
 

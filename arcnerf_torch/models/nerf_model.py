@@ -11,6 +11,7 @@ Importance resampling raises NotImplementedError.
 
 import torch
 
+from ..utils import profiler
 from ..utils.registry import MODEL_REGISTRY
 from .base_modules import build_geo_model, build_radiance_model
 from .fg_model import FgModel
@@ -54,7 +55,8 @@ class NeRF(FgModel):
             # Compaction leaves them at 0, but a chunk whose budget covers
             # every sample skips it (the JAX package shades them there)
             sigma = torch.where(mask_pts, sigma, 0.0)
-        out = self.ray_marching_wrap(sigma, radiance, zvals, inference_only=inference_only, bkg_color=bkg_color,
-                                     mask_pts=march_mask, generator=generator)
+        with profiler.span("model.march"):
+            out = self.ray_marching_wrap(sigma, radiance, zvals, inference_only=inference_only, bkg_color=bkg_color,
+                                         mask_pts=march_mask, generator=generator)
         return self.adjust_coarse_fine_output({"coarse": self.output_get_progress(out, get_progress)},
                                               inference_only)

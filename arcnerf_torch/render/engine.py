@@ -13,12 +13,17 @@ rays (one scalar) and renders those rays alone, so no chunk is padded and
 an empty pass of the windowed tier renders nothing. Images come back as
 (H, W, ...) tensors on the device, stats as Python numbers under the JAX
 keys. The multi-device host path of the fast tier (``fused=False``) is not
-ported.
+ported. While tracing is on (``utils.profiler``) each tier's call is one
+``render.frame`` span around its prepass, pass and chunk spans, and every
+read of a device count goes through ``profiler.host_read``.
 """
+
+import functools
 
 import torch
 
 from ..models.base_modules.obj_bound import _occ_mask_soa
+from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
 from .ray_helper import get_zvals_from_near_far_fix_step
 
@@ -65,6 +70,20 @@ def _rank_select(flags, budget):
     sel = torch.zeros(budget + 1, dtype=torch.int64, device=flags.device)
     sel = sel.scatter_(0, rank, torch.arange(n, device=flags.device))[:budget]
     return sel, flags.sum()
+
+
+def _frame(tier):
+    """A render tier's call as one ``render.frame`` span."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(*args, **kwargs):
+            with profiler.span("render.frame", tier=tier):
+                return fn(*args, **kwargs)
+
+        return traced
+
+    return wrap
 
 
 class RenderEngine:
@@ -124,11 +143,13 @@ class RenderEngine:
             m = chunk["rays_o"].shape[1]
             if cap_offset is not None:
                 chunk["cap_offset"] = cap_offset
-            out = self.model(chunk, inference_only=True, bound_state=self.bound_state)
-            n_valid += out.pop("n_valid_pts", 0)
+            with profiler.span("render.chunk", rays=m):
+                out = self.model(chunk, inference_only=True, bound_state=self.bound_state)
+                n_valid += out.pop("n_valid_pts", 0)
             outs.append({k: v[0] for k, v in out.items() if v.ndim >= 2 and v.shape[1] == m})
         self.last_n_valid_pts = n_valid
-        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        with profiler.span("render.assemble"):
+            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
     def _miss_rgb(self, bkg_color):
         """The colour of a ray that hits nothing: the fed background, else
@@ -140,6 +161,7 @@ class RenderEngine:
 
     # -------------------------------------------------------- exact render
     @torch.inference_mode()
+    @_frame("exact")
     def render_image(self, sample, chunk_rays=None, bkg_color=None):
         """Render every ray of a dataset sample; returns a dict of
         (H, W, ...) tensors on the device. ``bkg_color`` (3,) composites a
@@ -189,7 +211,9 @@ class RenderEngine:
         nothing culls a ray."""
         fg_state = bound_state.get("fg", bound_state)
         bound, n_pts = self._occ_ladder(fg_state)
-        return self._by_ray_chunks(lambda o, d: self._hit_chunk(bound, fg_state, n_pts, o, d, n_probe), rays_o, rays_d)
+        with profiler.span("render.prepass", kind="hit"):
+            return self._by_ray_chunks(lambda o, d: self._hit_chunk(bound, fg_state, n_pts, o, d, n_probe), rays_o,
+                                       rays_d)
 
     def _hit_chunk(self, bound, fg_state, n_pts, rays_o, rays_d, n_probe):
         near, far, hit = self._near_far(bound, fg_state, rays_o, rays_d)
@@ -214,7 +238,8 @@ class RenderEngine:
         bound, n_pts = self._occ_ladder(fg_state)
         if n_pts is None:
             return None
-        return self._by_ray_chunks(lambda o, d: self._count_chunk(bound, fg_state, n_pts, o, d), rays_o, rays_d)
+        with profiler.span("render.prepass", kind="count"):
+            return self._by_ray_chunks(lambda o, d: self._count_chunk(bound, fg_state, n_pts, o, d), rays_o, rays_d)
 
     def _count_chunk(self, bound, fg_state, n_pts, rays_o, rays_d):
         near, far, hit = self._near_far(bound, fg_state, rays_o, rays_d)
@@ -235,22 +260,24 @@ class RenderEngine:
         if hit is None:
             hit = torch.ones(n, dtype=torch.bool, device=self.device)
         sel, n_hit = _rank_select(hit, budget)
-        n_hit = int(n_hit)
+        n_hit = profiler.host_read(n_hit, "render.hit_count")
         m = min(n_hit, budget)
         # a frame with no hit still renders one ray, for the output keys
         rows = sel[:max(m, 1)]
         outs = self._render_rays({k: v[rows] for k, v in feed.items()}, chunk)
         imgs = {}
-        for k, v in outs.items():
-            if k == "rgb":
-                img = miss_rgb.to(v.dtype).expand(n, 3).clone()
-            else:
-                img = v.new_zeros((n,) + v.shape[1:])
-            img[sel[:m]] = v[:m]
-            imgs[k] = img
+        with profiler.span("render.assemble"):
+            for k, v in outs.items():
+                if k == "rgb":
+                    img = miss_rgb.to(v.dtype).expand(n, 3).clone()
+                else:
+                    img = v.new_zeros((n,) + v.shape[1:])
+                img[sel[:m]] = v[:m]
+                imgs[k] = img
         return imgs, n_hit
 
     @torch.inference_mode()
+    @_frame("fast")
     def render_image_fast(self, sample, chunk_rays=None, bkg_color=None, hit_frac=0.5, n_probe=0, fused=None):
         """Render only the rays that can hit anything: the hit prepass
         selects up to ``hit_frac * n`` of them (rounded up to whole chunks),
@@ -288,6 +315,7 @@ class RenderEngine:
         return sub, off
 
     @torch.inference_mode()
+    @_frame("interactive")
     def render_image_interactive(self, sample, scale=2, chunk_rays=None, bkg_color=None, hit_frac=0.5, n_probe=0):
         """Render a stride-``scale`` subgrid of the image's rays through the
         fast tier, then upsample every output bilinearly to the full frame.
@@ -321,7 +349,7 @@ class RenderEngine:
         if hit is None:
             hit = torch.ones(n, dtype=torch.bool, device=self.device)
         sel, n_hit = _rank_select(hit, budget1)
-        n_hit = int(n_hit)
+        n_hit = profiler.host_read(n_hit, "render.hit_count")
         m1 = min(n_hit, budget1)
         miss_depth = float(self.model.fg_model.get_render_cfgs()["depth_far"])
         imgs = {"rgb": miss_rgb.expand(n, 3).clone(), "depth": torch.full((n,), miss_depth, device=self.device),
@@ -329,50 +357,55 @@ class RenderEngine:
         if m1 == 0:
             return imgs, n_hit, 0, 0, [0] * len(pass_budgets)
 
-        feed1 = {k: v[sel[:m1]] for k, v in feed.items()}
-        out1 = self._render_rays(feed1, chunk, cap_offset=0)
-        rgb, depth, mask = out1["rgb"], out1["depth"], out1["mask"]
-        trans = torch.clamp(1.0 - mask, 0.0, 1.0)
-        # a ray can have more samples only if its window came back full
-        n_win = out1.get("n_win_pts")
-        may_more = n_win >= cap if n_win is not None else torch.ones(m1, dtype=torch.bool, device=self.device)
+        with profiler.span("render.pass", p=0):
+            feed1 = {k: v[sel[:m1]] for k, v in feed.items()}
+            out1 = self._render_rays(feed1, chunk, cap_offset=0)
+            rgb, depth, mask = out1["rgb"], out1["depth"], out1["mask"]
+            trans = torch.clamp(1.0 - mask, 0.0, 1.0)
+            # a ray can have more samples only if its window came back full
+            n_win = out1.get("n_win_pts")
+            may_more = n_win >= cap if n_win is not None else torch.ones(m1, dtype=torch.bool, device=self.device)
 
         clipped, alive_counts = 0, []
         for p, budget2 in enumerate(pass_budgets, start=1):
-            alive = (trans > eps) & may_more
-            rank = torch.cumsum(alive.to(torch.int64), 0) - 1
-            n_alive = int(alive.sum())
-            alive_counts.append(n_alive)
-            clipped += max(n_alive - budget2, 0)
-            may_more = may_more & ~(alive & (rank >= budget2))
-            if n_alive == 0:
-                continue
-            rows = torch.nonzero(alive & (rank < budget2))[:, 0]
-            out2 = self._render_rays({k: v[rows] for k, v in feed1.items()}, chunk, cap_offset=p * cap)
-            w2 = trans[rows]
-            rgb[rows] += w2[:, None] * out2["rgb"]
-            depth[rows] += w2 * out2["depth"]
-            mask[rows] += w2 * out2["mask"]
-            trans[rows] = w2 * torch.clamp(1.0 - out2["mask"], 0.0, 1.0)
-            if "n_win_pts" in out2:
-                may_more[rows] = out2["n_win_pts"] >= cap
+            with profiler.span("render.pass", p=p):
+                alive = (trans > eps) & may_more
+                rank = torch.cumsum(alive.to(torch.int64), 0) - 1
+                n_alive = profiler.host_read(alive.sum(), "render.alive")
+                alive_counts.append(n_alive)
+                clipped += max(n_alive - budget2, 0)
+                may_more = may_more & ~(alive & (rank >= budget2))
+                if n_alive == 0:
+                    continue
+                rows = torch.nonzero(alive & (rank < budget2))[:, 0]
+                out2 = self._render_rays({k: v[rows] for k, v in feed1.items()}, chunk, cap_offset=p * cap)
+                w2 = trans[rows]
+                rgb[rows] += w2[:, None] * out2["rgb"]
+                depth[rows] += w2 * out2["depth"]
+                mask[rows] += w2 * out2["mask"]
+                trans[rows] = w2 * torch.clamp(1.0 - out2["mask"], 0.0, 1.0)
+                if "n_win_pts" in out2:
+                    may_more[rows] = out2["n_win_pts"] >= cap
 
-        if hit_bkg is not None:
-            # the exact render composites T_end * bkg inside its march; the
-            # windows run without a background and composite it once here
-            rgb = rgb + trans[:, None] * hit_bkg
-        if n_win is not None:
-            # a hit ray with an empty first window fills as the exact
-            # render's invalid rays: depth_far, and the miss colour
-            empty = n_win <= 0
-            depth = torch.where(empty, miss_depth, depth)
-            if hit_bkg is None:
-                rgb = torch.where(empty[:, None], miss_rgb.to(rgb.dtype), rgb)
-        for k, v in (("rgb", rgb), ("depth", depth), ("mask", mask)):
-            imgs[k][sel[:m1]] = v
-        return imgs, n_hit, int(((trans > eps) & may_more).sum()), clipped, alive_counts
+        with profiler.span("render.assemble"):
+            if hit_bkg is not None:
+                # the exact render composites T_end * bkg inside its march; the
+                # windows run without a background and composite it once here
+                rgb = rgb + trans[:, None] * hit_bkg
+            if n_win is not None:
+                # a hit ray with an empty first window fills as the exact
+                # render's invalid rays: depth_far, and the miss colour
+                empty = n_win <= 0
+                depth = torch.where(empty, miss_depth, depth)
+                if hit_bkg is None:
+                    rgb = torch.where(empty[:, None], miss_rgb.to(rgb.dtype), rgb)
+            for k, v in (("rgb", rgb), ("depth", depth), ("mask", mask)):
+                imgs[k][sel[:m1]] = v
+            n_alive_end = profiler.host_read(((trans > eps) & may_more).sum(), "render.alive_end")
+        return imgs, n_hit, n_alive_end, clipped, alive_counts
 
     @torch.inference_mode()
+    @_frame("windowed")
     def render_image_windowed(self, sample, n_pass=3, alive_frac=0.5, chunk_rays=None, bkg_color=None, hit_frac=0.5,
                               n_probe=0, scale=1, eps=1e-3, adaptive_budget=True, refine_frac=0.0,
                               pass_budget_rays=None, budget_rays=None):
@@ -463,7 +496,8 @@ class RenderEngine:
                 n_chunks1 = max(1, min(n_chunks_max, -(-int(budget_rays) // chunk_rays)))
             else:
                 hit = self._hit_prepass(self.bound_state, feed["rays_o"], feed["rays_d"], n_probe)
-                n_chunks1 = n_chunks_max if hit is None else pow2_chunks(int(hit.sum()))
+                n_chunks1 = n_chunks_max if hit is None else pow2_chunks(profiler.host_read(hit.sum(),
+                                                                                            "render.hit_count"))
             pass_budgets = ray_budgets(pass_budget_rays)
         elif adaptive_budget:
             counts = self._count_prepass(self.bound_state, feed["rays_o"], feed["rays_d"])
@@ -472,8 +506,8 @@ class RenderEngine:
             else:
                 # rays with at least p * cap valid samples, for p = 0 .. n_pass - 1
                 full = torch.bincount((counts // cap).clamp_max(n_pass).long(), minlength=n_pass + 1)
-                at_least = full.flip(0).cumsum(0).flip(0).tolist()
-                n_chunks1 = pow2_chunks(int((counts > 0).sum()))
+                at_least = profiler.host_read(full.flip(0).cumsum(0).flip(0), "render.ladder", torch.Tensor.tolist)
+                n_chunks1 = pow2_chunks(profiler.host_read((counts > 0).sum(), "render.hit_count"))
                 pass_budgets = ray_budgets(at_least[1:n_pass])
         else:
             n_chunks1 = _hit_budget(n, hit_frac, chunk_rays) // chunk_rays
@@ -485,7 +519,7 @@ class RenderEngine:
 
         # the background is not fed to the model: it is composited once, at the end
         miss = self._miss_rgb(bkg_color) if bkg_color is not None else torch.zeros(3, device=self.device)
-        hit_bkg = miss if bool((miss != 0.0).any()) else None
+        hit_bkg = miss if profiler.host_read((miss != 0.0).any(), "render.background", bool) else None
         flat, n_hit, n_alive_end, clipped, alive = self._windowed_fused(feed, miss, hit_bkg, n_probe, budget1,
                                                                         pass_budgets, chunk_rays, cap, float(eps))
         imgs = {k: v.reshape((h, w) + v.shape[1:]) for k, v in flat.items()}

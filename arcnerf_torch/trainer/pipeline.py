@@ -16,6 +16,7 @@ ported.
 import numpy as np
 import torch
 
+from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
 from ..utils.device_consts import device_constant
 
@@ -99,15 +100,17 @@ class Pipeline:
             return self.n_rays
         if epoch % self.dynamic_update_epoch != 0 or not self._measured:
             return self.n_rays
-        counts = torch.stack([m[0] for m in self._measured]).float().cpu().tolist()
-        valid_per_ray = sum(c / m[1] for c, m in zip(counts, self._measured)) / len(counts)
-        self.last_valid_per_ray = valid_per_ray
-        self._measured = []
-        target = min(float(1 << log_max_allowance) / max(valid_per_ray, 1.0), float(self.dynamic_max_bs))
-        for b in _BS_BUCKETS:
-            if b >= target:
-                self.n_rays = b
-                break
-        else:
-            self.n_rays = min(_BS_BUCKETS[-1], int(self.dynamic_max_bs))
+        with profiler.span("train.batch_size", epoch=epoch):
+            counts = profiler.host_read(torch.stack([m[0] for m in self._measured]).float(), "train.batch_size",
+                                        lambda t: t.cpu().tolist())
+            valid_per_ray = sum(c / m[1] for c, m in zip(counts, self._measured)) / len(counts)
+            self.last_valid_per_ray = valid_per_ray
+            self._measured = []
+            target = min(float(1 << log_max_allowance) / max(valid_per_ray, 1.0), float(self.dynamic_max_bs))
+            for b in _BS_BUCKETS:
+                if b >= target:
+                    self.n_rays = b
+                    break
+            else:
+                self.n_rays = min(_BS_BUCKETS[-1], int(self.dynamic_max_bs))
         return self.n_rays

@@ -32,6 +32,8 @@ import time
 
 import torch
 
+from ..utils import profiler
+
 
 class StepGraph:
 
@@ -101,7 +103,9 @@ class StepGraph:
             if not on_card:
                 self._step()
             elif self.graph is None:
-                self._warm_up_and_capture()
+                with profiler.span("train.capture", rays=self.n_rays):
+                    self._warm_up_and_capture()
             else:
-                self.graph.replay()
+                with profiler.span("train.replay"):
+                    self.graph.replay()
         return {k: v[:n].clone() for k, v in self.ring.items()}

@@ -23,6 +23,10 @@ device tensor, and an explicit occupancy state dict:
   scan_steps 1 every step runs eagerly (``train_step``);
 - the dynamic batch size reads the measured valid-sample counts on the
   host only at its update cadence; nothing else syncs per step;
+- while tracing is on (``utils.profiler``) a stride or an eager step is
+  one ``train.stride`` span, the occupancy update ``train.occupancy``, and
+  the steps' valid samples past the point budget are counted
+  (``compact.dropped``) outside the captured step;
 - validation renders through the serving path (``RenderEngine``), whose
   render tiers the trainer also hands on (``set_render_cap``,
   ``render_image_fast``, ``render_image_interactive``,
@@ -46,6 +50,7 @@ from ..metrics import AverageDictCounter, psnr, ssim
 from ..models import build_model
 from ..models.base_modules.encoding import hash_variant_from_cfgs
 from ..render.engine import RenderEngine
+from ..utils import profiler
 from ..utils.cfgs import dump_configs, get_value_from_cfgs_field, valid_key_in_cfgs
 from ..utils.logger import Logger
 from ..utils.model_io import load_record, save_model
@@ -230,9 +235,11 @@ class ArcNerfTrainer:
         warmup = self.epoch_optim_warmup is not None and cur_epoch < self.epoch_optim_warmup
         fg_bound = self.model.fg_model.get_obj_bound()
         fg = self.bound_state["fg"]
-        new = fg_bound.optimize(fg, 0 if warmup else 10**9, self.n_coarse, self._fg_opacity, generator=self.generator)
-        for k, v in new.items():
-            fg[k].copy_(v)
+        with profiler.span("train.occupancy", epoch=cur_epoch):
+            new = fg_bound.optimize(fg, 0 if warmup else 10**9, self.n_coarse, self._fg_opacity,
+                                    generator=self.generator)
+            for k, v in new.items():
+                fg[k].copy_(v)
 
     # ------------------------------------------------------------ train step
     def update(self, feed):
@@ -266,14 +273,16 @@ class ArcNerfTrainer:
         """One eager optimizer step at ``epoch`` (the occupancy update first,
         on its cadence). ``feed`` (dict of (1, n_rays, ...) tensors) replaces
         the drawn batch. Returns stats of device tensors."""
-        self.run_optimize(epoch)
-        if feed is None:
-            feed = self.pipeline.sample(self.generator)
-        n_rays = feed["rays_o"].shape[1]
-        stats = self.update(feed)
-        self._step += 1
-        if "n_valid_pts" in stats and self.log_max_allowance:
-            self.pipeline.record_valid_pts(stats["n_valid_pts"], n_rays)
+        with profiler.span("train.stride", epoch=epoch, steps=1):
+            self.run_optimize(epoch)
+            if feed is None:
+                feed = self.pipeline.sample(self.generator)
+            n_rays = feed["rays_o"].shape[1]
+            stats = self.update(feed)
+            self._step += 1
+            if "n_valid_pts" in stats and self.log_max_allowance:
+                self.pipeline.record_valid_pts(stats["n_valid_pts"], n_rays)
+                profiler.count_compact(stats["n_valid_pts"], 1 << self.log_max_allowance)
         stats["n_rays"] = n_rays
         return stats
 
@@ -307,17 +316,19 @@ class ArcNerfTrainer:
             stats = self.train_step(epoch, None if feeds is None else feeds[0])
             self.loss_history.append(stats["loss"])
             return stats
-        self.run_optimize(epoch)
-        if feeds is None:
-            n_rays = min(self.pipeline.n_rays, self.pipeline.n_total_rays)
-        else:
-            n_rays = feeds[0]["rays_o"].shape[1]
-        seq = self._step_graph(n_rays, stride, None if feeds is None else feeds[0]).run(stride, feeds)
-        self._step += stride
-        self.loss_history.extend(seq["loss"].unbind())
-        if "n_valid_pts" in seq and self.log_max_allowance:
-            for count in seq["n_valid_pts"].unbind():
-                self.pipeline.record_valid_pts(count, n_rays)
+        with profiler.span("train.stride", epoch=epoch, steps=stride):
+            self.run_optimize(epoch)
+            if feeds is None:
+                n_rays = min(self.pipeline.n_rays, self.pipeline.n_total_rays)
+            else:
+                n_rays = feeds[0]["rays_o"].shape[1]
+            seq = self._step_graph(n_rays, stride, None if feeds is None else feeds[0]).run(stride, feeds)
+            self._step += stride
+            self.loss_history.extend(seq["loss"].unbind())
+            if "n_valid_pts" in seq and self.log_max_allowance:
+                for count in seq["n_valid_pts"].unbind():
+                    self.pipeline.record_valid_pts(count, n_rays)
+                profiler.count_compact(seq["n_valid_pts"], 1 << self.log_max_allowance)
         stats = {k: v[-1] for k, v in seq.items()}
         stats["n_rays"] = n_rays
         return stats
@@ -408,11 +419,13 @@ class ArcNerfTrainer:
         counter = AverageDictCounter()
         max_samples = int(get_value_from_cfgs_field(self.cfgs.progress, "max_samples_val", 1))
         bkg_color = self.eval_bkg_color(mode)
-        for i in range(min(len(dataset), max_samples)):
-            sample = dataset[i]
-            imgs = {k: v.float().cpu() for k, v in self.render_image(sample, bkg_color=bkg_color).items()}
-            gt = torch.as_tensor(sample["img"]).reshape(imgs["rgb"].shape)
-            counter({"psnr": float(psnr(imgs["rgb"], gt)), "ssim": float(ssim(imgs["rgb"], gt))})
+        with profiler.span("train.validate", epoch=epoch):
+            for i in range(min(len(dataset), max_samples)):
+                sample = dataset[i]
+                imgs = {k: profiler.host_read(v.float(), "train.validate", torch.Tensor.cpu)
+                        for k, v in self.render_image(sample, bkg_color=bkg_color).items()}
+                gt = torch.as_tensor(sample["img"]).reshape(imgs["rgb"].shape)
+                counter({"psnr": float(psnr(imgs["rgb"], gt)), "ssim": float(ssim(imgs["rgb"], gt))})
         summary = counter.get_avg_summary()
         self.logger.add_log("[{}] epoch {} | {}".format(mode, epoch, counter.get_metric_info()))
         return summary
@@ -424,7 +437,8 @@ class ArcNerfTrainer:
         rays of a batch can lose their samples (as in the JAX trainer)."""
         if self._warned_budget_overflow or not self.log_max_allowance or "n_valid_pts" not in stats:
             return
-        n_valid, budget = int(stats["n_valid_pts"]), 1 << self.log_max_allowance
+        n_valid = profiler.host_read(stats["n_valid_pts"], "train.budget_check")
+        budget = 1 << self.log_max_allowance
         if n_valid > budget:
             self.logger.add_log("valid pts {} > compaction budget 2^{}={}; over-budget points are dropped - raise "
                                 "model.obj_bound.log_max_allowance or reduce rays/samples".format(
@@ -459,7 +473,8 @@ class ArcNerfTrainer:
                     dt = time.time() - t_window
                     t_window = time.time()
                     self.logger.add_log("epoch {:6d} | loss {:.5f} | psnr {:.2f} | {:.3f} s/iter | rays {}".format(
-                        epoch, float(stats["loss"]), float(stats.get("psnr", 0.0)), dt / epoch_loss,
+                        epoch, profiler.host_read(stats["loss"], "train.loss_log", float),
+                        profiler.host_read(stats.get("psnr", 0.0), "train.loss_log", float), dt / epoch_loss,
                         stats["n_rays"]))
                 if epoch_val > 0 and epoch % epoch_val == 0 and "val" in self.data:
                     self.valid_epoch(epoch)
