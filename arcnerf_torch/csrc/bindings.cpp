@@ -1,4 +1,4 @@
-// The Python binding of the kernels' C launchers (kernels A-J): one
+// The Python binding of the kernels' C launchers (kernels A-J, the sampler): one
 // function per launcher of launchers.h, called by the wrappers in
 // arcnerf_torch (ops/, models/base_modules/encoding.py, render/ray_helper.py).
 //
@@ -382,10 +382,99 @@ Tensor build_update_rows(const Tensor& lane0, const Tensor& vals, const std::vec
     return out;
 }
 
+// ------------------------------------------------------------ the sampler
+
+// The ladder's inputs, checked: rays_o, rays_d (n, 3), bitfield (g, g, g)
+// bool, rand (n, n_pts) f32 or none; box 6 values, inv_voxel 3. Returns n.
+int64_t require_ladder(const char* name, const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield,
+                       const std::optional<Tensor>& rand, int64_t n_pts, const std::vector<float>& box,
+                       const std::vector<float>& inv_voxel) {
+    require(name, rays_o, ScalarType::Float, rays_o);
+    require(name, rays_d, ScalarType::Float, rays_o);
+    require(name, bitfield, ScalarType::Bool, rays_o);
+    const int64_t n = rays_o.size(0);
+    TORCH_CHECK_VALUE(rays_o.dim() == 2 && rays_o.size(1) == 3, name, ": expected rays (n, 3), got ",
+                      shape_str(rays_o.sizes()));
+    require_numel(name, rays_d, 3 * n, "rays_d");
+    TORCH_CHECK_VALUE(bitfield.dim() == 3 && bitfield.size(0) == bitfield.size(1) &&
+                          bitfield.size(0) == bitfield.size(2),
+                      name, ": expected a cubic bitfield, got shape ", shape_str(bitfield.sizes()));
+    TORCH_CHECK_VALUE(box.size() == 6 && inv_voxel.size() == 3, name, ": box takes 6 values and inv_voxel 3");
+    if (rand) {
+        require(name, *rand, ScalarType::Float, rays_o);
+        require_numel(name, *rand, n * n_pts, "rand");
+    }
+    require_int(name, n, "rays");
+    require_int(name, n_pts, "samples a ray");
+    return n;
+}
+
+// -> off, cnt (n,) int64, n_valid () int64, ray_has (n,) bool (the ray hits
+// the box and keeps a sample), and for the write: near_far (n, 2) f32,
+// clamp (n, 2) f32 (the jitter's clamp; (0, 2) without rand) and first_z
+// (1,) f32.
+std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> sample_count(
+        const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield, const std::optional<Tensor>& rand,
+        int64_t n_pts, double fix_t, const std::vector<float>& box, const std::vector<float>& inv_voxel, int64_t cap,
+        int64_t budget) {
+    const char* name = "sample_count";
+    const int64_t n = require_ladder(name, rays_o, rays_d, bitfield, rand, n_pts, box, inv_voxel);
+    require_int(name, cap, "cap");
+    c10::cuda::CUDAGuard guard(rays_o.device());
+    const auto f32 = rays_o.options(), i64 = f32.dtype(ScalarType::Long);
+    Tensor tot = at::empty({n}, f32.dtype(ScalarType::Int)), near_far = at::empty({n, 2}, f32);
+    Tensor clamp = at::empty({rand ? n : 0, 2}, f32), first_z = at::empty({1}, f32);
+    Tensor ray_has = at::empty({n}, f32.dtype(ScalarType::Bool));
+    Tensor off = at::empty({n}, i64), cnt = at::empty({n}, i64), n_valid = at::empty(at::IntArrayRef{}, i64);
+    check_status(name, arcnerf_sample_count(rays_o.data_ptr(), rays_d.data_ptr(), static_cast<int>(n),
+                                            bitfield.data_ptr(), static_cast<int>(bitfield.size(0)), box.data(),
+                                            inv_voxel.data(), rand ? rand->data_ptr() : nullptr,
+                                            static_cast<int>(n_pts), static_cast<float>(fix_t), static_cast<int>(cap),
+                                            budget, tot.data_ptr(), near_far.data_ptr(), clamp.data_ptr(),
+                                            first_z.data_ptr(), ray_has.data_ptr(), off.data_ptr(), cnt.data_ptr(),
+                                            n_valid.data_ptr(), stream_of(rays_o)));
+    return {off, cnt, n_valid, ray_has, near_far, clamp, first_z};
+}
+
+// The same ladder and sample_count's outputs -> the stream: z (budget,), pts
+// and dirs (budget, 3) f32.
+std::tuple<Tensor, Tensor, Tensor> sample_write(const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield,
+                                                const std::optional<Tensor>& rand, int64_t n_pts, double fix_t,
+                                                const std::vector<float>& box, const std::vector<float>& inv_voxel,
+                                                const Tensor& near_far, const Tensor& clamp, const Tensor& first_z,
+                                                const Tensor& off, const Tensor& cnt, const Tensor& n_valid,
+                                                int64_t budget) {
+    const char* name = "sample_write";
+    const int64_t n = require_ladder(name, rays_o, rays_d, bitfield, rand, n_pts, box, inv_voxel);
+    require(name, near_far, ScalarType::Float, rays_o);
+    require(name, clamp, ScalarType::Float, rays_o);
+    require(name, first_z, ScalarType::Float, rays_o);
+    require(name, off, ScalarType::Long, rays_o);
+    require(name, cnt, ScalarType::Long, rays_o);
+    require(name, n_valid, ScalarType::Long, rays_o);
+    require_numel(name, near_far, 2 * n, "near_far");
+    require_numel(name, clamp, rand ? 2 * n : 0, "clamp");
+    require_numel(name, first_z, 1, "first_z");
+    require_numel(name, off, n, "off");
+    require_numel(name, cnt, n, "cnt");
+    require_numel(name, n_valid, 1, "n_valid");
+    c10::cuda::CUDAGuard guard(rays_o.device());
+    Tensor z = at::empty({budget}, rays_o.options());
+    Tensor pts = at::empty({budget, 3}, rays_o.options()), dirs = at::empty({budget, 3}, rays_o.options());
+    check_status(name, arcnerf_sample_write(rays_o.data_ptr(), rays_d.data_ptr(), static_cast<int>(n),
+                                            bitfield.data_ptr(), static_cast<int>(bitfield.size(0)), box.data(),
+                                            inv_voxel.data(), rand ? rand->data_ptr() : nullptr,
+                                            static_cast<int>(n_pts), static_cast<float>(fix_t), near_far.data_ptr(),
+                                            clamp.data_ptr(), first_z.data_ptr(), off.data_ptr(), cnt.data_ptr(),
+                                            n_valid.data_ptr(), budget, z.data_ptr(), pts.data_ptr(), dirs.data_ptr(),
+                                            stream_of(rays_o)));
+    return {z, pts, dirs};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(ARCNERF_MODULE, m) {
-    m.doc() = "arcnerf_torch's CUDA kernels A-J (see arcnerf_torch/ops/cuda_lib.py)";
+    m.doc() = "arcnerf_torch's CUDA kernels A-J and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
     namespace py = pybind11;
     m.def("fused_mlp_fwd", &fused_mlp_fwd, py::arg("x"), py::arg("packed"), py::arg("din_pad"), py::arg("n_hidden"),
           py::arg("d_out"), py::arg("dout_pad"), py::arg("save_pre"));
@@ -405,4 +494,10 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
     m.def("scatter_add_rows", &scatter_add_rows, py::arg("out"), py::arg("idx"), py::arg("g"));
     m.def("build_update_rows", &build_update_rows, py::arg("lane0"), py::arg("vals"), py::arg("offs"),
           py::arg("n_feat"));
+    m.def("sample_count", &sample_count, py::arg("rays_o"), py::arg("rays_d"), py::arg("bitfield"), py::arg("rand"),
+          py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("cap"), py::arg("budget"));
+    m.def("sample_write", &sample_write, py::arg("rays_o"), py::arg("rays_d"), py::arg("bitfield"), py::arg("rand"),
+          py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("near_far"),
+          py::arg("clamp"), py::arg("first_z"), py::arg("off"), py::arg("cnt"), py::arg("n_valid"),
+          py::arg("budget"));
 }

@@ -1,6 +1,6 @@
-// The kernels' C launchers (kernels A-J), one per .cu file, declared once
-// for the kernels that define them and for the Python binding that calls
-// them (bindings.cpp): a launcher whose definition drifts from this
+// The kernels' C launchers (kernels A-J, the sampler), declared once for
+// the kernels that define them and for the Python binding that calls them
+// (bindings.cpp): a launcher whose definition drifts from this
 // declaration does not compile. Plain C++, no CUDA types.
 //
 // Every launcher takes device pointers and PyTorch's stream, launches on
@@ -50,5 +50,14 @@ long long arcnerf_scatter_add_rows_scratch_bytes(long long n_table, int w, long 
 // J, update_rows.cu
 int arcnerf_build_update_rows(const void* lane0, const void* vals, long long k, const int* offs, int n_off, int n_feat,
                               void* out, void* stream);
+// the sampler and its compaction, sample_compact.cu: count + scan, then write
+int arcnerf_sample_count(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield, int n_grid,
+                         const float* box, const float* inv_voxel, const void* rand, int n_pts, float fix_t, int cap,
+                         long long budget, void* tot, void* near_far, void* clamp, void* first_z, void* ray_has,
+                         void* off, void* cnt, void* n_valid, void* stream);
+int arcnerf_sample_write(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield, int n_grid,
+                         const float* box, const float* inv_voxel, const void* rand, int n_pts, float fix_t,
+                         const void* near_far, const void* clamp, const void* first_z, const void* off, const void* cnt,
+                         const void* n_valid, long long budget, void* z, void* pts, void* dirs, void* stream);
 
 }  // extern "C"

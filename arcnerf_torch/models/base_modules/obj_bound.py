@@ -88,6 +88,11 @@ class BasicBound:
         """Occupancy state (empty for unstructured bounds)."""
         return {}
 
+    def occupancy_ladder(self, state):
+        """Whether the bound samples the fix-step ladder culled by its
+        occupancy bitfield in ``state`` (no: no structure)."""
+        return False
+
     def get_near_far_from_rays(self, state, inputs, near_hardcode=None, far_hardcode=None, bounding_radius=None):
         """-> near (B, 1), far (B, 1), mask_rays (B,)|None."""
         near, far = get_near_far_from_rays(inputs["rays_o"], inputs["rays_d"], inputs.get("bounds"), near_hardcode,
@@ -143,6 +148,13 @@ class VolumeBound(BasicBound):
             "bitfield": self.volume.create_bitfield(init_occ=True, device=device),
             "opafield": self.volume.create_opafield(device=device),
         }
+
+    def occupancy_ladder(self, state):
+        """Whether the sampler walks the fix-step ladder and culls it by the
+        bitfield of ``state``: ray_sample_acc and ray_sample_fix_step set,
+        occupancy updates on (epoch_optim) and a bitfield present."""
+        return ("bitfield" in state and self.get_optim_cfgs("epoch_optim") is not None
+                and bool(self.get_optim_cfgs("ray_sample_acc")) and bool(self.get_optim_cfgs("ray_sample_fix_step")))
 
     def get_near_far_from_rays(self, state, inputs, **kwargs):
         near, far, _, mask = self.volume.ray_volume_intersection(inputs["rays_o"], inputs["rays_d"])

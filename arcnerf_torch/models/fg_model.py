@@ -6,7 +6,10 @@ window mode, ``_compact_sel_aux``, ``_compact_sel``, ``_compact_budget``,
 ``get_sigma_radiance_by_mask_pts``, ``fused_render_by_mask_pts``,
 ``update_values_for_invalid_rays``), at inference and in training. The
 training draws (sample jitter, sigma noise) come from a ``torch.Generator``
-passed down from the trainer. Surface rendering waits for the SDF models.
+passed down from the trainer. Where the bound walks its fix-step occupancy
+ladder, ``forward`` samples and compacts in one (``sample_compact``, a
+kernel on the card) and builds no (rays, samples) grid. Surface rendering
+waits for the SDF models.
 """
 
 import torch
@@ -17,6 +20,7 @@ from ..utils.cfgs import get_value_from_cfgs_field
 from ..utils.device_consts import device_constant
 from .base_3d_model import Base3dModel
 from .base_modules.obj_bound import build_obj_bound
+from .base_modules.sample_compact import compact_sel_aux, gather_stream, sample_count, sample_write
 
 
 class FgModel(Base3dModel):
@@ -60,6 +64,16 @@ class FgModel(Base3dModel):
         bkg = get_value_from_cfgs_field(self.cfgs.model, "background", None)
         return not (bkg is not None and get_value_from_cfgs_field(bkg, "bkg_blend", "rgb") == "sigma")
 
+    def fuses_sampling(self, bound_state, get_progress=False, cap_offset=None):
+        """Whether ``forward`` samples and compacts in one
+        (``sample_compact``, a kernel on the card): the bound walks its
+        fix-step occupancy ladder, the masks are scattered, a point budget
+        applies, and neither a window (``cap_offset``) nor progress outputs
+        are asked for. Everything else needs the (rays, n_pts) grid."""
+        budget = self.get_render_cfgs("max_allowance")
+        return (self.obj_bound.occupancy_ladder(bound_state or {}) and self.use_scattered_masks()
+                and isinstance(budget, int) and budget > 0 and cap_offset is None and not get_progress)
+
     # -------------------------------------------------------------- forward
     def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None, generator=None):
         """Render flat rays: inputs rays_o/rays_d (B, 3) (+ bkg_color (B, 3),
@@ -69,19 +83,25 @@ class FgModel(Base3dModel):
         ``get_progress`` and, in window mode, n_win_pts (B,), the samples in
         each ray's window. In training (``inference_only=False``) the zvals
         are jittered when rays.perturb is set, and sigma noised when
-        rays.noise_std > 0, with draws from ``generator``."""
+        rays.noise_std > 0, with draws from ``generator``. Where
+        ``fuses_sampling`` holds, ``_forward`` gets the compacted stream
+        (inputs["stream"]) in place of the grid's zvals and masks."""
+        bound_state = bound_state or {}
+        if self.fuses_sampling(bound_state, get_progress, inputs.get("cap_offset")):
+            inputs, mask_rays, n_valid = self._sample_stream(inputs, inference_only, bound_state, generator)
+            output = self._forward(inputs, inference_only, get_progress, generator)
+            output = self.update_values_for_invalid_rays(output, mask_rays, inputs.get("bkg_color"))
+            output["n_valid_pts"] = n_valid
+            return output
+
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
         with profiler.span("model.sample"):
             near, far, mask_rays = self.get_near_far_from_rays(inputs, bound_state)
             near, far = near.detach(), far.detach()
-            n_coarse = self.get_ray_cfgs("n_sample")
-            if inference_only:
-                # the inference ladder may be coarser than training's (eval_n_sample)
-                n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
             zvals, mask_pts = self.obj_bound.get_zvals_from_near_far(
-                bound_state or {}, near, far, n_coarse, inference_only, self.get_ray_cfgs("inverse_linear"),
-                self.get_ray_cfgs("perturb"), generator, rays_o=rays_o, rays_d=rays_d,
-                keep_order=self.use_scattered_masks(), cap_offset=inputs.get("cap_offset"))
+                bound_state, near, far, self._n_coarse(inference_only), inference_only,
+                self.get_ray_cfgs("inverse_linear"), self.get_ray_cfgs("perturb"), generator, rays_o=rays_o,
+                rays_d=rays_d, keep_order=self.use_scattered_masks(), cap_offset=inputs.get("cap_offset"))
             # window mode: (window mask, pre-cap mask); marching spans gaps with
             # the pre-cap mask, so consecutive windows compose exactly
             windowed = isinstance(mask_pts, tuple)
@@ -106,31 +126,43 @@ class FgModel(Base3dModel):
             output["n_win_pts"] = mask_pts.sum(1, dtype=torch.int32)
         return output
 
+    def _n_coarse(self, inference_only):
+        """Ladder slots a ray: rays.n_sample, or at inference the bound's
+        eval_n_sample where set (a coarser serving ladder)."""
+        n_coarse = self.get_ray_cfgs("n_sample")
+        if inference_only:
+            n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
+        return n_coarse
+
+    def _sample_stream(self, inputs, inference_only, bound_state, generator):
+        """The fused sampler: the bound's near/far, the ladder, its
+        occupancy, the cap and the compaction in two launches
+        (``sample_count`` in the sample span, ``sample_write`` in the compact
+        span). The jitter is the plain path's one draw, from ``generator``
+        at the same point. Returns (inputs with the stream, mask_rays (B,),
+        n_valid_pts)."""
+        rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
+        n_rays, n_pts = rays_o.shape[0], self._n_coarse(inference_only)
+        budget = min(self._compact_budget(n_rays, inference_only), n_rays * n_pts)
+        cap = self.obj_bound.get_optim_cfgs("eval_max_pts_per_ray") if inference_only else None
+        with profiler.span("model.sample"):
+            rand = None
+            if self.get_ray_cfgs("perturb") and not inference_only and generator is not None:
+                rand = torch.rand((n_rays, n_pts), generator=generator, dtype=rays_o.dtype, device=rays_o.device)
+            plan = sample_count(self.obj_bound.get_obj_bound(), bound_state["bitfield"], rays_o, rays_d, n_pts,
+                                budget, cap, rand)
+        with profiler.span("model.compact"):
+            stream = sample_write(plan)
+            if inference_only and profiler.active():  # training counts its steps outside the captured step
+                profiler.count_compact(plan["n_valid"], budget)
+                profiler.count("sample.fused", 1)
+        return dict(inputs, stream=stream), plan["ray_has"], plan["n_valid"]
+
     def _forward(self, inputs, inference_only=True, get_progress=False, generator=None):
         raise NotImplementedError("implement _forward in the concrete model")
 
     # ----------------------------------------------------------- compaction
-    @staticmethod
-    def _compact_sel_aux(mask_pts, budget):
-        """Flat indices of the first ``budget`` valid samples in ray-major
-        order, plus the segment geometry of that stream: ``off`` (B,)
-        unclipped exclusive start rank per ray and ``cnt`` (B,) in-stream
-        count (clipped to the budget). Returns (sel, sel_valid, off, cnt).
-        Same ``sel`` as the JAX row-gather form on the valid prefix; padding
-        rows carry index 0 (consumers bound reads by off/cnt or sel_valid)."""
-        n_rays, n_pts = mask_pts.shape
-        total = n_rays * n_pts
-        row = torch.cumsum(mask_pts.to(torch.int64), dim=1)  # (B, N) inclusive
-        tot = row[:, -1]
-        off = torch.cumsum(tot, dim=0) - tot
-        # each valid slot lands at its global rank; the rest at a dump row
-        rank = (row + off[:, None] - 1).reshape(-1)
-        rank = torch.where(mask_pts.reshape(-1) & (rank < budget), rank, budget)
-        sel = torch.zeros(budget + 1, dtype=torch.int64, device=mask_pts.device)
-        sel = sel.scatter_(0, rank, torch.arange(total, device=mask_pts.device))[:budget]
-        sel_valid = torch.arange(budget, device=mask_pts.device) < tot.sum()
-        cnt = torch.minimum((budget - off).clamp_min(0), tot)
-        return sel, sel_valid, off, cnt
+    _compact_sel_aux = staticmethod(compact_sel_aux)
 
     @staticmethod
     def _compact_sel(mask_pts, budget):
@@ -165,10 +197,7 @@ class FgModel(Base3dModel):
             return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
         with profiler.span("model.compact"):
             sel, sel_valid = self._compact_sel(mask_pts, budget)
-            ray_id = sel // n_pts
-            z_sel = zvals.reshape(-1)[sel]
-            d_sel = rays_d[ray_id]
-            pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+            _, pts_sel, d_sel = gather_stream(sel, zvals, rays_o, rays_d)
             if inference_only and profiler.active():  # training counts its steps outside the captured step
                 profiler.count_compact(mask_pts.sum(), budget)
         sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
@@ -196,14 +225,17 @@ class FgModel(Base3dModel):
         budget = min(budget, n_rays * n_pts)
         with profiler.span("model.compact"):
             sel, _, off, cnt = self._compact_sel_aux(mask_pts, budget)
-            ray_id = sel // n_pts
-            z_sel = zvals.reshape(-1)[sel]
-            d_sel = rays_d[ray_id]
-            pts_sel = rays_o[ray_id] + z_sel[:, None] * d_sel
+            z_sel, pts_sel, d_sel = gather_stream(sel, zvals, rays_o, rays_d)
             if inference_only and profiler.active():  # training counts its steps outside the captured step
                 profiler.count_compact(mask_pts.sum(), budget)
+        stream = {"z": z_sel, "pts": pts_sel, "dirs": d_sel, "off": off, "cnt": cnt}
+        return self.render_stream(geo_net, radiance_net, stream, inference_only, bkg_color, generator)
 
-        sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
+    def render_stream(self, geo_net, radiance_net, stream, inference_only=True, bkg_color=None, generator=None):
+        """sigma and radiance on a compacted stream ({z, pts, dirs, off,
+        cnt}, of ``gather_stream`` or ``sample_write``), composited along
+        each ray (``segment_march``). Returns {rgb, depth, mask}."""
+        sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, stream["pts"], stream["dirs"])
         noise = None
         noise_std = 0.0 if inference_only else float(self.get_ray_cfgs("noise_std") or 0.0)
         if noise_std > 0.0 and generator is not None:
@@ -211,7 +243,8 @@ class FgModel(Base3dModel):
         # kernel C's lanes a ray: the serving cap keeps every segment short
         group = march_group(self.get_render_cfgs("eval_max_pts_per_ray") if inference_only else None)
         with profiler.span("model.march"):
-            out = segment_march(sigma_c, radiance_c, z_sel, off, cnt, add_inf_z=self.get_ray_cfgs("add_inf_z"),
+            out = segment_march(sigma_c, radiance_c, stream["z"], stream["off"], stream["cnt"],
+                                add_inf_z=self.get_ray_cfgs("add_inf_z"),
                                 white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise,
                                 group=group)
         out.pop("trans_end")

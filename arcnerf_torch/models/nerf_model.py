@@ -3,9 +3,10 @@ bound it is the NGP recipe (``configs/models/nerf_ngp.yaml``).
 
 Counterpart of ``arcnerf_tpu/models/nerf_model.py``: ``setup`` and
 ``_forward``'s dispatch, at inference and in training: the compacted-stream
-render where it applies, else the dense path (sigma and radiance on the
-(rays, samples) grid, then ``ray_marching``), which also serves the
-progress outputs and the windows of the transmittance-continuation render.
+render where it applies (on the fused sampler's stream or the grid's
+mask), else the dense path (sigma and radiance on the (rays, samples)
+grid, then ``ray_marching``), which also serves the progress outputs and
+the windows of the transmittance-continuation render.
 Importance resampling raises NotImplementedError.
 """
 
@@ -32,15 +33,20 @@ class NeRF(FgModel):
         return self.coarse_geo_net, self.coarse_radiance_net
 
     def _forward(self, inputs, inference_only=True, get_progress=False, generator=None):
-        """The compacted-stream render (kernels C and F on the card) when the
-        mask is in ladder order and neither progress outputs nor a window are
-        asked for; else the dense path. Training keys carry the ``_coarse``
-        suffix, as the JAX ``adjust_coarse_fine_output`` gives them."""
+        """The compacted-stream render (kernels C and F on the card): on the
+        fused sampler's stream when ``forward`` made one, else on the grid's
+        mask when it is in ladder order and neither progress outputs nor a
+        window are asked for; else the dense path. Training keys carry the
+        ``_coarse`` suffix, as the JAX ``adjust_coarse_fine_output`` gives
+        them."""
         if not self.use_scattered_masks():
             raise NotImplementedError("left-compacted marching is not ported yet (ROADMAP Queue 1, item 4)")
-        rays_o, rays_d, zvals, mask_pts = inputs["rays_o"], inputs["rays_d"], inputs["zvals"], inputs["mask_pts"]
         bkg_color = inputs.get("bkg_color")
         geo_net, radiance_net = self.get_net()
+        if "stream" in inputs:
+            out = self.render_stream(geo_net, radiance_net, inputs["stream"], inference_only, bkg_color, generator)
+            return self.adjust_coarse_fine_output({"coarse": out}, inference_only)
+        rays_o, rays_d, zvals, mask_pts = inputs["rays_o"], inputs["rays_d"], inputs["zvals"], inputs["mask_pts"]
         if not get_progress and mask_pts is not None and "mask_march" not in inputs:
             out = self.fused_render_by_mask_pts(geo_net, radiance_net, rays_o, rays_d, zvals, mask_pts,
                                                 inference_only, bkg_color=bkg_color, generator=generator)

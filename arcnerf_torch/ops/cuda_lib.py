@@ -42,7 +42,7 @@ TORCH_LIBS = ["c10", "c10_cuda", "torch", "torch_cpu", "torch_python"]
 BAD_ARGUMENT = 100000  # ARCNERF_BAD_ARGUMENT of csrc/launchers.h
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_F, _IP = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+_F, _IP, _FV = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int), ctypes.c_float
 _SIGNATURES = {
     "arcnerf_fused_mlp_fwd": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "arcnerf_fused_mlp_bwd": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -54,6 +54,8 @@ _SIGNATURES = {
     "arcnerf_lane_gather": [_P, _LL, _LL, _P, _LL, _LL, _P, _P],
     "arcnerf_scatter_add_rows": [_P, _LL, _I, _P, _P, _LL, _P, _LL, _P],
     "arcnerf_build_update_rows": [_P, _P, _LL, _IP, _I, _I, _P, _P],
+    "arcnerf_sample_count": [_P, _P, _I, _P, _I, _F, _F, _P, _I, _FV, _I, _LL] + [_P] * 9,
+    "arcnerf_sample_write": [_P, _P, _I, _P, _I, _F, _F, _P, _I, _FV, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P],
 }
 
 _ops = None

@@ -181,10 +181,7 @@ class RenderEngine:
         the render), else (bound, None)."""
         fg = self.model.fg_model
         bound = fg.get_obj_bound()
-        use_occ = ("bitfield" in fg_state and hasattr(bound, "volume")
-                   and bound.get_optim_cfgs("epoch_optim") is not None
-                   and bound.get_optim_cfgs("ray_sample_acc") and bound.get_optim_cfgs("ray_sample_fix_step"))
-        if not use_occ:
+        if not bound.occupancy_ladder(fg_state):
             return bound, None
         return bound, int(bound.get_optim_cfgs().get("eval_n_sample") or fg.get_ray_cfgs("n_sample"))
 

@@ -283,8 +283,16 @@ class ArcNerfTrainer:
             if "n_valid_pts" in stats and self.log_max_allowance:
                 self.pipeline.record_valid_pts(stats["n_valid_pts"], n_rays)
                 profiler.count_compact(stats["n_valid_pts"], 1 << self.log_max_allowance)
+            self._count_fused_sampling(1)
         stats["n_rays"] = n_rays
         return stats
+
+    def _count_fused_sampling(self, steps):
+        """Count ``steps`` training steps under ``sample.fused`` where the
+        step samples through the fused sampler (here, outside the captured
+        step, which a replay does not run in Python)."""
+        if profiler.active() and self.model.fg_model.fuses_sampling(self.bound_state.get("fg")):
+            profiler.count("sample.fused", steps)
 
     def _stride_for(self, epoch, cadences):
         """How many steps can run as one stride without crossing a host-side
@@ -329,6 +337,7 @@ class ArcNerfTrainer:
                 for count in seq["n_valid_pts"].unbind():
                     self.pipeline.record_valid_pts(count, n_rays)
                 profiler.count_compact(seq["n_valid_pts"], 1 << self.log_max_allowance)
+            self._count_fused_sampling(stride)
         stats = {k: v[-1] for k, v in seq.items()}
         stats["n_rays"] = n_rays
         return stats

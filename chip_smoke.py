@@ -23,7 +23,12 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    (PARENT_MS). Kernel I runs at the probes' five shapes, each also
    replayed from a CUDA graph beside index_add_ in one, and at kernel E's
    scale in place (compare_scatter_w1); kernel J at the probe's quad and
-   pair geometries.
+   pair geometries. The fused sampler (S, ``sample_compact``) at a training
+   step's shapes (16384 rays x 512 slots, jitter, 2^18 budget), the
+   16384-ray serving chunk at cap 16 and the 1024-ray last chunk of an
+   800x800 frame, on the scene's occupancy, held bit for bit against its
+   plain version and timed through CUDA events and from a CUDA graph (its
+   count and scan alone too).
    Kernels A (both builds, inference and save_pre) and D are also run
    twice for bit-identical results and timed beside a
    bf16 chain of cuBLAS calls (A through its C entry point in a CUDA graph,
@@ -42,8 +47,8 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    NGP recipe (configs/expr/synthetic_ngp.yaml, full width, random weights
    from a seeded torch.Generator saved as a port checkpoint, occupancy of
    the scene's spheres at n_grid 128, per-ray cap 16). Checks the image,
-   that kernels A-C launched in that run, and a 4096-ray crop against the
-   plain path on the CPU; then times 3 renders, the first of which also
+   that kernels A-C and the sampler launched in that run, and a 4096-ray
+   crop against the plain path on the CPU; then times 3 renders, the first of which also
    captures the compacted stream kernel C receives for the 16384-ray chunk
    that crosses the spheres (rays 311296-327679), on which C is held
    against its plain version and timed from a CUDA graph.
@@ -51,8 +56,8 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    steps (24 Synthetic views at 128x128, dynamic batch up to 32768 rays,
    occupancy updates every 16 steps with warmup below 256). Checks that the
    loss is finite and falls, that the bitfield changed, that kernels A-F
-   all launched, that one batch's loss and gradients match the plain path
-   on the CPU, and that the held-out view renders at >= 20 dB PSNR through
+   and the sampler all launched, that one batch's loss and gradients match
+   the plain path on the CPU, and that the held-out view renders at >= 20 dB PSNR through
    the serving path; prints the ray bucket, valid samples per ray and peak
    memory. The tiers phase then renders an 800x800 held-out view of the
    trained model through the trainer's render tiers, with the eval
@@ -62,8 +67,9 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    3), ``render_windowed_s1`` and ``_s2`` (windows of 8 samples, eps 1e-3,
    the counted ladder of 512 / 8 passes): for each a warm-up and 3 timed
    frames (median, host clock around torch.cuda.synchronize()), PSNR
-   against the exact frame, stats, peak memory and the launches of A-C a
-   frame (A and B in every tier, C in all but the windowed ones). Gates:
+   against the exact frame, stats, peak memory and the launches of A-C and
+   the sampler a frame (A and B in every tier, C and the sampler in all
+   but the windowed ones, which launch no sampler). Gates:
    finite (800, 800, ...) images; fast at hit_frac 1.0 against exact (rgb
    max abs <= 5e-2); windows at eps 0 against the uncapped render of the
    4096-ray crop (<= 1e-3); windowed s1 >= 40 dB against the uncapped
@@ -93,7 +99,8 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    and of graph replays at the same bucket. (d) torch.profiler over one
    stride of replays: device busy and idle, Adam's time, and each of A-F
    launched a replay as often as an eager step launches it.
-7. Prints the kernel table as JSON (A-F's launches from the training run,
+7. Prints the kernel table as JSON (A-F's and the sampler's launches from
+   the training run,
    G-J's from the tools; G-J's times at the probes' largest shape, J's
    also at quad's; A's entry also holds its save_pre build, B's and E's
    their numbers on the training stream, C's and F's on the captured
@@ -830,6 +837,61 @@ def compare_march_stream(march):
     return rows, {"C": c, "F": f, "lengths": length_summary(lengths)}
 
 
+# the fused sampler at the main paths' shapes: (label, rays, jitter, cap,
+# budget) on the scene's occupancy with a tenth of the rays missing, 512
+# ladder slots a ray
+S_SLOTS = 512
+S_CASES = (("training step", 16384, True, None, 1 << 18), ("serving chunk", 16384, False, 16, 1 << 18),
+           ("last serving chunk", 1024, False, 16, 16384))
+S_KEYS = ("z", "pts", "dirs", "off", "cnt", "n_valid", "ray_has")
+
+
+def s_bound(n_rays, jitter, budget):
+    """The sampler's least bytes: each ray's origin and direction read once
+    (24 bytes), its off, cnt and flag written (17), the jitter read once,
+    the stream written (28 bytes a row)."""
+    return bound(41 * n_rays + (4 * n_rays * S_SLOTS if jitter else 0) + 28 * budget, 0, F32_FLOP_S)
+
+
+def compare_sample_compact(dev, gen):
+    """The fused sampler on S_CASES against its plain version, bit for bit;
+    timed through CUDA events (the mean of 20 calls), from a CUDA graph,
+    its count and scan alone from a CUDA graph, and the plain version."""
+    from arcnerf_torch.models.base_modules import sample_compact as sampler
+    from arcnerf_torch.tools.sample_streams import ladder_bitfield, ladder_rand, ladder_rays, ladder_volume
+
+    vol = ladder_volume()
+    bitfield = ladder_bitfield("scene", vol, SEED, device=dev)
+    rows, entry = [], {"cases": {}}
+    for label, n_rays, jitter, cap, budget in S_CASES:
+        o, d = ladder_rays(vol, n_rays, SEED, 0.1, device=dev)
+        rand = ladder_rand(n_rays, S_SLOTS, SEED + 1, device=dev) if jitter else None
+        args = (vol, bitfield, o, d, S_SLOTS, budget, cap, rand)
+
+        def run():
+            return sampler.sample_compact(*args)
+
+        def plain():
+            return sampler.sample_compact(*args, count=sampler.sample_count_reference)
+
+        got, want = run(), plain()
+        for k in S_KEYS:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError("sampler {}: {} is not bit-identical to the plain version".format(label, k))
+        c = {"max_abs_err": 0.0, "ms": graph_ms(run), "events_ms": time_ms(run),
+             "count_ms": graph_ms(lambda: sampler.sample_count(*args)), "plain_ms": time_ms(plain, 3),
+             "n_valid": int(got["n_valid"]), "kept": int(got["cnt"].sum())}
+        del got, want
+        suffix = add_bound(c, [s_bound(n_rays, jitter, budget)])
+        rows.append("S sample_compact {} ({} rays x {} slots, jitter {}, cap {}, budget {}; {} valid, {} kept): "
+                    "bit-identical, kernel {:.4f} ms (CUDA graph; count + scan {:.4f} ms; CUDA events {:.4f} ms), "
+                    "plain {:.4f} ms, {}".format(label, n_rays, S_SLOTS, jitter, cap, budget, c["n_valid"], c["kept"],
+                                                 c["ms"], c["count_ms"], c["events_ms"], c["plain_ms"], suffix))
+        entry["cases"][label] = c
+    entry.update(entry["cases"]["training step"])
+    return rows, entry
+
+
 def compare_serving_chunk(march):
     """Kernel C on the compacted stream of one 16384-ray chunk of the
     800x800 serving frame (``capture_chunk``), against its plain version
@@ -1176,13 +1238,14 @@ def make_checkpoint(path, argv):
 
 def kernel_counters():
     from arcnerf_torch.models.base_modules.encoding import hash_encode, hash_encode_bwd
+    from arcnerf_torch.models.base_modules.sample_compact import sample_count
     from arcnerf_torch.ops.fused_mlp import fused_mlp, fused_mlp_bwd
     from arcnerf_torch.ops.gather_scatter import build_update_rows, lane_gather, row_gather, scatter_add_rows
     from arcnerf_torch.render.ray_helper import segment_march, segment_march_bwd
 
     return {"A": fused_mlp, "B": hash_encode, "C": segment_march, "D": fused_mlp_bwd, "E": hash_encode_bwd,
             "F": segment_march_bwd, "G": row_gather, "H": lane_gather, "I": scatter_add_rows,
-            "J": build_update_rows}
+            "J": build_update_rows, "S": sample_count}
 
 
 def reset_launches():
@@ -1213,7 +1276,7 @@ def serve(dev):
     reset_launches()
     summary, results = evaluate.main(argv)
     torch.cuda.synchronize()
-    launches = read_launches("ABC")
+    launches = read_launches("ABCS")
     print("serving path launches:", launches, "eval summary:", summary)
     rgb = results[0]["rgb"]
     if rgb.shape != (800, 800, 3) or not np.isfinite(rgb).all():
@@ -1319,7 +1382,7 @@ def train(profile=False):
     trainer = train_entry.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches("ABCDEF")
+    launches = read_launches("ABCDEFS")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print("training path launches:", launches, "per step:", {k: v / TRAIN_STEPS for k, v in launches.items()})
     if min(launches.values()) <= 0:
@@ -1415,14 +1478,16 @@ def tiers(trainer):
             imgs, stats = renders[tier](**kwargs)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        launches = {k: v / (TIER_RUNS + 1) for k, v in read_launches("ABC").items()}
+        launches = {k: v / (TIER_RUNS + 1) for k, v in read_launches("ABCS").items()}
         peak = torch.cuda.max_memory_allocated() / 2**20
         check_frame(key, imgs)
         if exact is None:
             exact = imgs["rgb"]
-        need = "ABC" if tier != "windowed" else "AB"
+        need = "ABCS" if tier != "windowed" else "AB"
         if min(launches[k] for k in need) <= 0:
             raise AssertionError("{}: a kernel of the tier never launched: {}".format(key, launches))
+        if tier == "windowed" and launches["S"] != 0:
+            raise AssertionError("{}: the windowed tier launched the fused sampler: {}".format(key, launches))
         if tier == "windowed" and stats["clipped_alive"] != 0:
             raise AssertionError("{}: {} alive rays clipped".format(key, stats["clipped_alive"]))
         numbers[key] = {"ms": statistics.median(times) * 1e3, "runs_ms": [t * 1e3 for t in times],
@@ -1805,14 +1870,14 @@ def main():
     for key, fn in (("A", compare_fused_mlp), ("B", compare_hash_encode), ("C", compare_segment_march),
                     ("D", compare_fused_mlp_bwd), ("E", compare_hash_encode_bwd), ("F", compare_segment_march_bwd),
                     ("G", compare_row_gather), ("H", compare_lane_gather), ("I", compare_scatter_add_rows),
-                    ("J", compare_update_rows)):
+                    ("J", compare_update_rows), ("S", compare_sample_compact)):
         rows, stats[key] = fn(dev, gen)
         for row in rows:
             print(row)
     print(compare_scatter_w1(dev, gen))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print("kernel comparisons A-J: {:.1f} s".format(time.perf_counter() - t0))
+    print("kernel comparisons A-J, S: {:.1f} s".format(time.perf_counter() - t0))
 
     # ------------------------------------------------------ the launch path
     host, rows = launch_path(dev, gen)
@@ -1870,9 +1935,12 @@ def main():
               "scripts/probe_pallas_gather2.py:57,88"),
         "I": ("scatter_add_rows", "arcnerf_torch/csrc/scatter_add_rows.cu", "scripts/probe_pallas_gather.py:142"),
         "J": ("build_update_rows", "arcnerf_torch/csrc/update_rows.cu", "scripts/probe_cons_forms.py:95"),
+        "S": ("sample_compact", "arcnerf_torch/csrc/sample_compact.cu",
+              "none (XLA: models/base_modules/obj_bound.py:60, geometry/volume.py:288,307, "
+              "render/ray_helper.py:162, models/fg_model.py:227)"),
     }
     kernels = [dict(name=meta[k][0], route="cuda", source=meta[k][1], replaces=meta[k][2], launches=launches[k],
-                    **stats[k]) for k in "ABCDEFGHIJ"]
+                    **stats[k]) for k in "ABCDEFGHIJS"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

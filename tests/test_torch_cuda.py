@@ -1,6 +1,6 @@
-"""arcnerf_torch's CUDA kernels (A-J) vs their plain PyTorch versions on the
-card, the autograd Functions' dispatch to them, and the gather/scatter
-wrappers' launch counters.
+"""arcnerf_torch's CUDA kernels (A-J, the fused sampler) vs their plain
+PyTorch versions on the card, the autograd Functions' dispatch to them, and
+the gather/scatter wrappers' launch counters.
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test skips where CUDA is
 unavailable. The card's machine has no JAX, so run this file without the
@@ -16,6 +16,7 @@ import torch
 import arcnerf_torch.models.base_modules.encoding as encoding
 import arcnerf_torch.ops.fused_mlp as fused_mlp_mod
 import arcnerf_torch.ops.gather_scatter as gs
+import arcnerf_torch.models.base_modules.sample_compact as sampler
 import arcnerf_torch.render.ray_helper as ray_helper
 from arcnerf_torch.models.base_modules.encoding import (HashGridEmbedder, hash_encode, hash_encode_bwd,
                                                        hash_encode_bwd_reference, hash_encode_reference)
@@ -25,6 +26,7 @@ from arcnerf_torch.render.ray_helper import (segment_march, segment_march_bwd, s
                                              segment_march_reference)
 from arcnerf_torch.tools.hash_streams import one_cell_stream, pad_stream, ray_stream
 from arcnerf_torch.tools.march_streams import long_tail_lengths, ray_gradients, segment_stream
+from arcnerf_torch.tools.sample_streams import ladder_bitfield, ladder_rand, ladder_rays, ladder_volume
 from arcnerf_torch.tools.scatter_streams import partition_constants
 
 pytestmark = pytest.mark.cuda
@@ -1086,3 +1088,106 @@ def test_render_tiers_windowed_matches_uncapped_on_the_card(dev):
     assert fused_mlp.launches > counts[0] and hash_encode.launches > counts[1]
     for k in ("rgb", "depth", "mask"):
         assert float((win[k] - full[k]).abs().max()) <= WINDOW_TOL * (4 if k == "depth" else 1), k
+
+
+# ------------------------------------------------------- the fused sampler
+
+# (rays, bitfield, ladder slots, jitter, cap, budget, miss share) at the main
+# path's shapes: a training step (2^18 budget: the scene's samples overflow
+# it, and far more those of a half-occupied grid), a 16384-ray serving chunk
+# at cap 16 and the 1024-ray last chunk of an 800x800 frame; rays that all
+# miss, an empty bitfield, a full one whose budget covers every sample; a
+# ragged ladder (not a multiple of 32)
+SAMPLER_CASES = {
+    "train_step": (16384, "scene", 512, True, None, 1 << 18, 0.1),
+    "train_step_half": (16384, "half", 512, True, None, 1 << 18, 0.1),
+    "serve_chunk": (16384, "scene", 512, False, 16, 1 << 18, 0.1),
+    "serve_last_chunk": (1024, "scene", 512, False, 16, 16384, 0.1),
+    "all_miss": (4096, "scene", 512, True, None, 1 << 16, 1.0),
+    "empty_bitfield": (4096, "empty", 512, True, None, 1 << 16, 0.1),
+    "full_covered": (1024, "full", 512, True, None, 1024 * 512, 0.0),
+    "full_covered_capped": (1024, "full", 512, False, 16, 1024 * 512, 0.0),
+    "ragged_ladder": (3000, "half", 100, True, None, 1 << 16, 0.2),
+}
+SAMPLER_KEYS = ("z", "pts", "dirs", "off", "cnt", "n_valid", "ray_has")
+
+
+def _sampler_inputs(name, dev, seed=0):
+    n_rays, kind, n_pts, jitter, cap, budget, miss = SAMPLER_CASES[name]
+    vol = ladder_volume()
+    rays_o, rays_d = ladder_rays(vol, n_rays, seed, miss, device=dev)
+    rand = ladder_rand(n_rays, n_pts, seed + 1, device=dev) if jitter else None
+    return vol, ladder_bitfield(kind, vol, seed, device=dev), rays_o, rays_d, n_pts, budget, cap, rand
+
+
+def _sampler_equal(got, want):
+    for k in SAMPLER_KEYS:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLER_CASES))
+def test_sample_compact_kernel_matches_plain(dev, name):
+    # bit for bit: the kernel rounds as PyTorch's CUDA operators do
+    args = _sampler_inputs(name, dev)
+    launches = (sampler.sample_count.launches, sampler.sample_write.launches)
+    got = sampler.sample_compact(*args)
+    assert (sampler.sample_count.launches, sampler.sample_write.launches) == (launches[0] + 1, launches[1] + 1)
+    want = sampler.sample_compact(*args, count=sampler.sample_count_reference)
+    _sampler_equal(got, want)
+    n_valid, budget = int(got["n_valid"]), args[5]
+    if name.startswith("train_step"):
+        assert n_valid > budget  # the budget drops samples
+    if name in ("all_miss", "empty_bitfield"):
+        assert n_valid == 0 and not bool(got["ray_has"].any())
+    if name.startswith("full_covered"):
+        assert int(got["cnt"].sum()) == n_valid > 0
+
+
+def test_sample_compact_kernel_replays_from_a_cuda_graph(dev):
+    # captured once (the counters rise at the capture, not at a replay), then
+    # replayed on new rays and draws copied into the captured inputs
+    vol, bitfield, rays_o, rays_d, n_pts, budget, cap, rand = _sampler_inputs("train_step", dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sampler.sample_compact(vol, bitfield, rays_o, rays_d, n_pts, budget, cap, rand)
+    torch.cuda.current_stream().wait_stream(side)
+    launches = sampler.sample_count.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sampler.sample_compact(vol, bitfield, rays_o, rays_d, n_pts, budget, cap, rand)
+    assert sampler.sample_count.launches == launches + 1
+    _, _, new_o, new_d, _, _, _, new_rand = _sampler_inputs("train_step", dev, seed=9)
+    for buf, new in ((rays_o, new_o), (rays_d, new_d), (rand, new_rand)):
+        buf.copy_(new)
+    bitfield.copy_(ladder_bitfield("half", vol, 9, device=dev))
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert sampler.sample_count.launches == launches + 1
+    _sampler_equal(out, sampler.sample_compact(vol, bitfield, rays_o, rays_d, n_pts, budget, cap, rand,
+                                               count=sampler.sample_count_reference))
+
+
+def test_sample_compact_binding_refuses_what_the_kernel_does_not_take(dev):
+    vol, bitfield, rays_o, rays_d, n_pts, budget, cap, rand = _sampler_inputs("serve_last_chunk", dev)
+    with pytest.raises(ValueError):  # a draw for every slot, or none
+        sampler.sample_count(vol, bitfield, rays_o, rays_d, n_pts, budget, cap, rand=rays_o[:, 0].contiguous())
+    with pytest.raises(ValueError):  # a bool bitfield
+        sampler.sample_count(vol, bitfield.float(), rays_o, rays_d, n_pts, budget, cap)
+    with pytest.raises(ValueError):  # a budget of at least one row
+        sampler.sample_count(vol, bitfield, rays_o, rays_d, n_pts, 0, cap)
+
+
+def test_graph_strides_launch_the_fused_sampler(dev, tmp_path):
+    # the NGP recipe's step samples through the kernel: its bucket's warm-up
+    # step and capture launch it, the replays add no Python call
+    trainer = _graph_trainer(tmp_path, "sampler", 4)
+    assert trainer.model.fg_model.fuses_sampling(trainer.bound_state["fg"])
+    launches = (sampler.sample_count.launches, sampler.sample_write.launches)
+    trainer.train_steps(0, 4)
+    trainer.train_steps(4, 4)
+    torch.cuda.synchronize()
+    assert (sampler.sample_count.launches, sampler.sample_write.launches) == (launches[0] + 2, launches[1] + 2)
+    step = trainer.step_graphs[(256, None)]
+    assert step.graph is not None and all(int(c) > 0 for c in step.ring["n_valid_pts"])

@@ -379,8 +379,10 @@ def test_training_counts_its_dropped_samples_from_the_steps(tmp_path):
     t.train_steps(0, 4)
     counts = torch.stack([m[0] for m in t.pipeline._measured])
     assert len(counts) == 4 and int((counts - budget).clamp_min(0).sum()) > 0
+    # and the fused sampler's steps: counted with them, outside the step
     assert profiler.collect()["counters"] == {"compact.valid": int(counts.sum()),
-                                              "compact.dropped": int((counts - budget).clamp_min(0).sum())}
+                                              "compact.dropped": int((counts - budget).clamp_min(0).sum()),
+                                              "sample.fused": 4}
 
 
 def test_count_compact_drops_what_passes_the_budget():
