@@ -1,4 +1,4 @@
-// The Python binding of the kernels' C launchers (kernels A-J, the sampler): one
+// The Python binding of the kernels' C launchers (kernels A-L, the sampler): one
 // function per launcher of launchers.h, called by the wrappers in
 // arcnerf_torch (ops/, models/base_modules/encoding.py, render/ray_helper.py).
 //
@@ -221,6 +221,58 @@ Tensor hash_encode_bwd(const Tensor& xyz, const Tensor& g, const Tensor& res, in
     return grad;
 }
 
+// xyz (N, 3) f32, table (L, 2^log2_table, F) f32, g (N, L F) f32 -> dx (N, 3)
+// f32 (kernel K).
+Tensor hash_dx(const Tensor& xyz, const Tensor& table, const Tensor& g, const Tensor& res, int64_t log2_table,
+               const Float3& aabb_min, const Float3& aabb_len, int64_t variant, bool read_bf16) {
+    const char* name = "hash_encode_dx";
+    require(name, table, ScalarType::Float, xyz);
+    require(name, g, ScalarType::Float, xyz);
+    TORCH_CHECK_VALUE(table.dim() == 3 && table.size(1) == (int64_t{1} << log2_table), name,
+                      ": expected an (L, 2^", log2_table, ", F) table, got shape ", shape_str(table.sizes()));
+    const int64_t n_levels = table.size(0), n_feat = table.size(2);
+    require_hash_inputs(name, xyz, res, n_levels);
+    require_numel(name, g, xyz.size(0) * n_levels * n_feat, "g");
+    c10::cuda::CUDAGuard guard(xyz.device());
+    Tensor dx = at::empty({xyz.size(0), 3}, xyz.options());
+    if (xyz.size(0) > 0) {
+        check_status(name, arcnerf_hash_dx(xyz.data_ptr(), xyz.size(0), table.data_ptr(), g.data_ptr(),
+                                           static_cast<int>(n_levels), static_cast<int>(log2_table),
+                                           static_cast<int>(n_feat), res.data_ptr(), aabb_min.data(), aabb_len.data(),
+                                           static_cast<int>(variant), read_bf16 ? 1 : 0, dx.data_ptr(),
+                                           stream_of(xyz)));
+    }
+    return dx;
+}
+
+// The same inputs and g_dx (N, 3) f32 -> the table's gradient (L, 2^log2_table,
+// F), zeroed here and scattered into, and g's (N, L F) (kernel L).
+std::tuple<Tensor, Tensor> hash_dx_bwd(const Tensor& xyz, const Tensor& table, const Tensor& g, const Tensor& g_dx,
+                                       const Tensor& res, int64_t log2_table, const Float3& aabb_min,
+                                       const Float3& aabb_len, int64_t variant, bool read_bf16) {
+    const char* name = "hash_dx_bwd";
+    require(name, table, ScalarType::Float, xyz);
+    require(name, g, ScalarType::Float, xyz);
+    require(name, g_dx, ScalarType::Float, xyz);
+    TORCH_CHECK_VALUE(table.dim() == 3 && table.size(1) == (int64_t{1} << log2_table), name,
+                      ": expected an (L, 2^", log2_table, ", F) table, got shape ", shape_str(table.sizes()));
+    const int64_t n_levels = table.size(0), n_feat = table.size(2);
+    require_hash_inputs(name, xyz, res, n_levels);
+    require_numel(name, g, xyz.size(0) * n_levels * n_feat, "g");
+    require_numel(name, g_dx, xyz.size(0) * 3, "g_dx");
+    c10::cuda::CUDAGuard guard(xyz.device());
+    Tensor d_table = at::zeros(table.sizes(), table.options());
+    Tensor d_g = at::empty({xyz.size(0), n_levels * n_feat}, xyz.options());
+    if (xyz.size(0) > 0) {
+        check_status(name, arcnerf_hash_dx_bwd(xyz.data_ptr(), xyz.size(0), table.data_ptr(), g.data_ptr(),
+                                               g_dx.data_ptr(), static_cast<int>(n_levels),
+                                               static_cast<int>(log2_table), static_cast<int>(n_feat), res.data_ptr(),
+                                               aabb_min.data(), aabb_len.data(), static_cast<int>(variant),
+                                               read_bf16 ? 1 : 0, d_table.data_ptr(), d_g.data_ptr(), stream_of(xyz)));
+    }
+    return {d_table, d_g};
+}
+
 // ------------------------------------------------------------ C and F
 
 // The compacted stream sigma (K,), rgb (K, 3), z (K,) f32 and per ray off,
@@ -244,10 +296,15 @@ int64_t require_march_inputs(const char* name, const Tensor& sigma, const Tensor
     return n_rays;
 }
 
+// The launchers' mode: the sigma mode without or with add_inf_z, or the alpha mode.
+int march_mode(bool add_inf_z, bool alpha) {
+    return alpha ? 2 : (add_inf_z ? 1 : 0);
+}
+
 std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma, const Tensor& rgb, const Tensor& z,
                                                              const Tensor& off, const Tensor& cnt, bool add_inf_z,
                                                              const std::optional<Tensor>& bkg, bool white_bkg,
-                                                             int64_t group) {
+                                                             int64_t group, bool alpha) {
     const char* name = "segment_march";
     const int64_t n_rays = require_march_inputs(name, sigma, rgb, z, off, cnt, bkg);
     TORCH_CHECK_VALUE(group == 32 || group == 8, name, ": kernel C takes groups of 32 or 8 lanes a ray, not ", group);
@@ -258,7 +315,7 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma
     if (n_rays > 0) {
         check_status(name, arcnerf_segment_march_fwd(sigma.data_ptr(), rgb.data_ptr(), z.data_ptr(), off.data_ptr(),
                                                      cnt.data_ptr(), static_cast<int>(n_rays), z.numel(),
-                                                     add_inf_z ? 1 : 0, bkg ? bkg->data_ptr() : nullptr,
+                                                     march_mode(add_inf_z, alpha), bkg ? bkg->data_ptr() : nullptr,
                                                      white_bkg ? 1 : 0, static_cast<int>(group), out_rgb.data_ptr(),
                                                      depth.data_ptr(), mask.data_ptr(), trans_end.data_ptr(),
                                                      stream_of(z)));
@@ -269,7 +326,7 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma
 std::tuple<Tensor, Tensor> segment_march_bwd(const Tensor& sigma, const Tensor& rgb, const Tensor& z,
                                              const Tensor& off, const Tensor& cnt, const Tensor& g_rgb,
                                              const Tensor& g_depth, const Tensor& g_mask, bool add_inf_z,
-                                             const std::optional<Tensor>& bkg, bool white_bkg) {
+                                             const std::optional<Tensor>& bkg, bool white_bkg, bool alpha) {
     const char* name = "segment_march_bwd";
     const int64_t n_rays = require_march_inputs(name, sigma, rgb, z, off, cnt, bkg);
     require(name, g_rgb, ScalarType::Float, z);
@@ -283,7 +340,7 @@ std::tuple<Tensor, Tensor> segment_march_bwd(const Tensor& sigma, const Tensor& 
     if (n_rays > 0) {
         check_status(name, arcnerf_segment_march_bwd(sigma.data_ptr(), rgb.data_ptr(), z.data_ptr(), off.data_ptr(),
                                                      cnt.data_ptr(), static_cast<int>(n_rays), z.numel(),
-                                                     add_inf_z ? 1 : 0, bkg ? bkg->data_ptr() : nullptr,
+                                                     march_mode(add_inf_z, alpha), bkg ? bkg->data_ptr() : nullptr,
                                                      white_bkg ? 1 : 0, g_rgb.data_ptr(), g_depth.data_ptr(),
                                                      g_mask.data_ptr(), d_sigma.data_ptr(), d_rgb.data_ptr(),
                                                      stream_of(z)));
@@ -416,7 +473,7 @@ int64_t require_ladder(const char* name, const Tensor& rays_o, const Tensor& ray
 std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> sample_count(
         const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield, const std::optional<Tensor>& rand,
         int64_t n_pts, double fix_t, const std::vector<float>& box, const std::vector<float>& inv_voxel, int64_t cap,
-        int64_t budget) {
+        int64_t budget, bool sections) {
     const char* name = "sample_count";
     const int64_t n = require_ladder(name, rays_o, rays_d, bitfield, rand, n_pts, box, inv_voxel);
     require_int(name, cap, "cap");
@@ -430,20 +487,21 @@ std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> sample_count(
                                             bitfield.data_ptr(), static_cast<int>(bitfield.size(0)), box.data(),
                                             inv_voxel.data(), rand ? rand->data_ptr() : nullptr,
                                             static_cast<int>(n_pts), static_cast<float>(fix_t), static_cast<int>(cap),
-                                            budget, tot.data_ptr(), near_far.data_ptr(), clamp.data_ptr(),
+                                            budget, sections ? 1 : 0, tot.data_ptr(), near_far.data_ptr(),
+                                            clamp.data_ptr(),
                                             first_z.data_ptr(), ray_has.data_ptr(), off.data_ptr(), cnt.data_ptr(),
                                             n_valid.data_ptr(), stream_of(rays_o)));
     return {off, cnt, n_valid, ray_has, near_far, clamp, first_z};
 }
 
 // The same ladder and sample_count's outputs -> the stream: z (budget,), pts
-// and dirs (budget, 3) f32.
-std::tuple<Tensor, Tensor, Tensor> sample_write(const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield,
+// and dirs (budget, 3) f32, and with sections len (budget,) f32 (else none).
+std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>> sample_write(const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield,
                                                 const std::optional<Tensor>& rand, int64_t n_pts, double fix_t,
                                                 const std::vector<float>& box, const std::vector<float>& inv_voxel,
                                                 const Tensor& near_far, const Tensor& clamp, const Tensor& first_z,
                                                 const Tensor& off, const Tensor& cnt, const Tensor& n_valid,
-                                                int64_t budget) {
+                                                int64_t budget, bool sections, int64_t cap) {
     const char* name = "sample_write";
     const int64_t n = require_ladder(name, rays_o, rays_d, bitfield, rand, n_pts, box, inv_voxel);
     require(name, near_far, ScalarType::Float, rays_o);
@@ -458,23 +516,27 @@ std::tuple<Tensor, Tensor, Tensor> sample_write(const Tensor& rays_o, const Tens
     require_numel(name, off, n, "off");
     require_numel(name, cnt, n, "cnt");
     require_numel(name, n_valid, 1, "n_valid");
+    require_int(name, cap, "cap");
     c10::cuda::CUDAGuard guard(rays_o.device());
     Tensor z = at::empty({budget}, rays_o.options());
     Tensor pts = at::empty({budget, 3}, rays_o.options()), dirs = at::empty({budget, 3}, rays_o.options());
+    std::optional<Tensor> len;
+    if (sections) len = at::empty({budget}, rays_o.options());
     check_status(name, arcnerf_sample_write(rays_o.data_ptr(), rays_d.data_ptr(), static_cast<int>(n),
                                             bitfield.data_ptr(), static_cast<int>(bitfield.size(0)), box.data(),
                                             inv_voxel.data(), rand ? rand->data_ptr() : nullptr,
                                             static_cast<int>(n_pts), static_cast<float>(fix_t), near_far.data_ptr(),
                                             clamp.data_ptr(), first_z.data_ptr(), off.data_ptr(), cnt.data_ptr(),
-                                            n_valid.data_ptr(), budget, z.data_ptr(), pts.data_ptr(), dirs.data_ptr(),
+                                            n_valid.data_ptr(), budget, static_cast<int>(cap), z.data_ptr(),
+                                            pts.data_ptr(), dirs.data_ptr(), len ? len->data_ptr() : nullptr,
                                             stream_of(rays_o)));
-    return {z, pts, dirs};
+    return {z, pts, dirs, len};
 }
 
 }  // namespace
 
 PYBIND11_MODULE(ARCNERF_MODULE, m) {
-    m.doc() = "arcnerf_torch's CUDA kernels A-J and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
+    m.doc() = "arcnerf_torch's CUDA kernels A-L and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
     namespace py = pybind11;
     m.def("fused_mlp_fwd", &fused_mlp_fwd, py::arg("x"), py::arg("packed"), py::arg("din_pad"), py::arg("n_hidden"),
           py::arg("d_out"), py::arg("dout_pad"), py::arg("save_pre"));
@@ -484,20 +546,26 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
           py::arg("log2_table"), py::arg("aabb_min"), py::arg("aabb_len"), py::arg("variant"), py::arg("read_bf16"));
     m.def("hash_encode_bwd", &hash_encode_bwd, py::arg("xyz"), py::arg("g"), py::arg("res"), py::arg("n_levels"),
           py::arg("log2_table"), py::arg("n_feat"), py::arg("aabb_min"), py::arg("aabb_len"), py::arg("variant"));
+    m.def("hash_dx", &hash_dx, py::arg("xyz"), py::arg("table"), py::arg("g"), py::arg("res"), py::arg("log2_table"),
+          py::arg("aabb_min"), py::arg("aabb_len"), py::arg("variant"), py::arg("read_bf16"));
+    m.def("hash_dx_bwd", &hash_dx_bwd, py::arg("xyz"), py::arg("table"), py::arg("g"), py::arg("g_dx"), py::arg("res"),
+          py::arg("log2_table"), py::arg("aabb_min"), py::arg("aabb_len"), py::arg("variant"), py::arg("read_bf16"));
     m.def("segment_march_fwd", &segment_march_fwd, py::arg("sigma"), py::arg("rgb"), py::arg("z"), py::arg("off"),
-          py::arg("cnt"), py::arg("add_inf_z"), py::arg("bkg"), py::arg("white_bkg"), py::arg("group") = 32);
+          py::arg("cnt"), py::arg("add_inf_z"), py::arg("bkg"), py::arg("white_bkg"), py::arg("group") = 32,
+          py::arg("alpha") = false);
     m.def("segment_march_bwd", &segment_march_bwd, py::arg("sigma"), py::arg("rgb"), py::arg("z"), py::arg("off"),
           py::arg("cnt"), py::arg("g_rgb"), py::arg("g_depth"), py::arg("g_mask"), py::arg("add_inf_z"),
-          py::arg("bkg"), py::arg("white_bkg"));
+          py::arg("bkg"), py::arg("white_bkg"), py::arg("alpha") = false);
     m.def("row_gather", &row_gather, py::arg("table"), py::arg("idx"));
     m.def("lane_gather", &lane_gather, py::arg("src"), py::arg("idx"));
     m.def("scatter_add_rows", &scatter_add_rows, py::arg("out"), py::arg("idx"), py::arg("g"));
     m.def("build_update_rows", &build_update_rows, py::arg("lane0"), py::arg("vals"), py::arg("offs"),
           py::arg("n_feat"));
     m.def("sample_count", &sample_count, py::arg("rays_o"), py::arg("rays_d"), py::arg("bitfield"), py::arg("rand"),
-          py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("cap"), py::arg("budget"));
+          py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("cap"), py::arg("budget"),
+          py::arg("sections") = false);
     m.def("sample_write", &sample_write, py::arg("rays_o"), py::arg("rays_d"), py::arg("bitfield"), py::arg("rand"),
           py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("near_far"),
           py::arg("clamp"), py::arg("first_z"), py::arg("off"), py::arg("cnt"), py::arg("n_valid"),
-          py::arg("budget"));
+          py::arg("budget"), py::arg("sections") = false, py::arg("cap") = 0);
 }

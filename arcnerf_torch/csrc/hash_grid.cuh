@@ -72,6 +72,36 @@ __device__ __forceinline__ void corners(float3 n, int r, uint32_t table_size, in
     }
 }
 
+// The entries as corners() gives them, and per corner the derivative of
+// its weight with respect to the point's fraction in the cell along each
+// axis (kernels K and L, hash_dx.cu): dw[c][a] is +-1 (the corner's side
+// along a) times the other two axes' weight factors, as the plain version
+// (encoding.py _corner_weight_grads) forms it.
+__device__ __forceinline__ void corner_grads(float3 n, int r, uint32_t table_size, int variant, uint32_t (&entry)[8],
+                                             float (&dw)[8][3]) {
+    float w[8];
+    corners(n, r, table_size, variant, entry, w);
+    const float rf = static_cast<float>(r);
+    const float px = __fmul_rn(n.x, rf), py = __fmul_rn(n.y, rf), pz = __fmul_rn(n.z, rf);
+    const int x0 = min(max(static_cast<int>(floorf(px)), 0), r - 1);
+    const int y0 = min(max(static_cast<int>(floorf(py)), 0), r - 1);
+    const int z0 = min(max(static_cast<int>(floorf(pz)), 0), r - 1);
+    const float fx = __fsub_rn(px, static_cast<float>(x0));
+    const float fy = __fsub_rn(py, static_cast<float>(y0));
+    const float fz = __fsub_rn(pz, static_cast<float>(z0));
+    const float wx[2] = {__fsub_rn(1.f, fx), fx};
+    const float wy[2] = {__fsub_rn(1.f, fy), fy};
+    const float wz[2] = {__fsub_rn(1.f, fz), fz};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        const int cz = c >> 2, cx = (c >> 1) & 1, cy = c & 1;
+        const float a = __fmul_rn(wy[cy], wz[cz]), b = __fmul_rn(wx[cx], wz[cz]), d = __fmul_rn(wx[cx], wy[cy]);
+        dw[c][0] = cx ? a : -a;
+        dw[c][1] = cy ? b : -b;
+        dw[c][2] = cz ? d : -d;
+    }
+}
+
 // xyz: the point; r: the level's resolution; mn/len: volume corner and side
 // lengths. The same entries and weights as above, from the raw point.
 __device__ __forceinline__ void corners(float x, float y, float z, int r, float mn0, float mn1, float mn2,

@@ -1,4 +1,4 @@
-// The kernels' C launchers (kernels A-J, the sampler), declared once for
+// The kernels' C launchers (kernels A-L, the sampler), declared once for
 // the kernels that define them and for the Python binding that calls them
 // (bindings.cpp): a launcher whose definition drifts from this
 // declaration does not compile. Plain C++, no CUDA types.
@@ -28,13 +28,13 @@ int arcnerf_hash_encode_fwd(const void* xyz, long long n_pts, const void* table,
 int arcnerf_hash_encode_bwd(const void* xyz, long long n_pts, const void* g, int n_levels, int log2_table, int n_feat,
                             const void* res, const float* aabb_min, const float* aabb_len, int variant, void* grad,
                             void* stream);
-// C, segment_march.cu
+// C, segment_march.cu (mode: 0 / 1 sigma without / with add_inf_z, 2 alpha)
 int arcnerf_segment_march_fwd(const void* sigma, const void* rgb, const void* z, const void* off, const void* cnt,
-                              int n_rays, long long k_total, int add_inf_z, const void* bkg, int white_bkg, int group,
+                              int n_rays, long long k_total, int mode, const void* bkg, int white_bkg, int group,
                               void* out_rgb, void* out_depth, void* out_mask, void* out_trans_end, void* stream);
-// F, segment_march_bwd.cu
+// F, segment_march_bwd.cu (mode as C's)
 int arcnerf_segment_march_bwd(const void* sigma, const void* rgb, const void* z, const void* off, const void* cnt,
-                              int n_rays, long long k_total, int add_inf_z, const void* bkg, int white_bkg,
+                              int n_rays, long long k_total, int mode, const void* bkg, int white_bkg,
                               const void* g_rgb, const void* g_depth, const void* g_mask, void* d_sigma, void* d_rgb,
                               void* stream);
 // G, row_gather.cu
@@ -51,13 +51,22 @@ long long arcnerf_scatter_add_rows_scratch_bytes(long long n_table, int w, long 
 int arcnerf_build_update_rows(const void* lane0, const void* vals, long long k, const int* offs, int n_off, int n_feat,
                               void* out, void* stream);
 // the sampler and its compaction, sample_compact.cu: count + scan, then write
+// (sections: an SDF's sections in place of the samples; len non-null writes their lengths)
 int arcnerf_sample_count(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield, int n_grid,
                          const float* box, const float* inv_voxel, const void* rand, int n_pts, float fix_t, int cap,
-                         long long budget, void* tot, void* near_far, void* clamp, void* first_z, void* ray_has,
-                         void* off, void* cnt, void* n_valid, void* stream);
+                         long long budget, int sections, void* tot, void* near_far, void* clamp, void* first_z,
+                         void* ray_has, void* off, void* cnt, void* n_valid, void* stream);
 int arcnerf_sample_write(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield, int n_grid,
                          const float* box, const float* inv_voxel, const void* rand, int n_pts, float fix_t,
                          const void* near_far, const void* clamp, const void* first_z, const void* off, const void* cnt,
-                         const void* n_valid, long long budget, void* z, void* pts, void* dirs, void* stream);
+                         const void* n_valid, long long budget, int cap, void* z, void* pts, void* dirs, void* len,
+                         void* stream);
+// K and L, hash_dx.cu: the hash grid's input gradient and its backward
+int arcnerf_hash_dx(const void* xyz, long long n_pts, const void* table, const void* g, int n_levels, int log2_table,
+                    int n_feat, const void* res, const float* aabb_min, const float* aabb_len, int variant,
+                    int read_bf16, void* dx, void* stream);
+int arcnerf_hash_dx_bwd(const void* xyz, long long n_pts, const void* table, const void* g, const void* g_dx,
+                        int n_levels, int log2_table, int n_feat, const void* res, const float* aabb_min,
+                        const float* aabb_len, int variant, int read_bf16, void* d_table, void* d_g, void* stream);
 
 }  // extern "C"

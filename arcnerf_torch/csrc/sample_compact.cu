@@ -29,7 +29,16 @@
 // - the stream: each valid sample at row off_r + its rank in the ray, in
 //   ladder order, while below the budget; rows past the valid count hold
 //   ray 0's first sample (z, its point and direction), as the plain
-//   version's index 0 gives them.
+//   version's index 0 gives them;
+// - in the sections mode (an SDF's sections, JAX Neus.handle_mid_pts on
+//   left-compacted rows; the plain version is sdf_sections), a ray with c
+//   valid samples z_0 < ... < z_(c-1) counts min(c + 1, n_pts) sections
+//   (none for c = 0): section j < c - 1 spans z_j to z_(j+1), section
+//   c - 1 spans z_(c-1) to z_(c-1) + 2 sd with sd = (z_(c-1) - z_0) /
+//   n_pts / 2 (a multiply by the f32 reciprocal of n_pts), and section c
+//   has length 0 there. A row holds the section's
+//   mid point (z, the point) and its length (len); the budget applies to
+//   sections, and padding rows have length 0.
 //
 // What bounds it on the H100: in a training step (16384 rays x 512 slots,
 // budget 2^18) the jitter read once (33.5 MB) and the stream written
@@ -53,7 +62,12 @@
 // 3. write (sample_write_kernel): the walk again for rays with cnt > 0, the
 //    in-ray rank from the ballot, ending at cnt; near, far and the clamp
 //    come from the count's walk. Blocks past the rays fill the padding
-//    rows.
+//    rows. In the sections mode each valid sample writes the section that
+//    ends at it, its start z from the next lower valid lane by a shuffle
+//    (or carried from the walk's earlier steps), and lane 0 writes the
+//    ray's last two sections after the walk.
+// The mode is a template parameter: the samples mode compiles as it did
+// before the sections mode existed.
 // Nothing is read back to the host, and the outputs have fixed sizes (the
 // budget), so a training step captured as a CUDA graph replays it.
 // Every rounding is the plain version's as PyTorch's CUDA operators give
@@ -168,6 +182,7 @@ __device__ __forceinline__ bool sample_at(const Ladder& p, const Ray& r, int j, 
     return p.bitfield[(idx[0] * p.n_grid + idx[1]) * p.n_grid + idx[2]] != 0;
 }
 
+template <bool Sections>
 __global__ void __launch_bounds__(kThreads) sample_count_kernel(Ladder p, int cap, int* __restrict__ tot,
                                                                 float2* __restrict__ near_far,
                                                                 float2* __restrict__ clamp,
@@ -201,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) sample_count_kernel(Ladder p, int ca
     }
     if (cap > 0) count = min(count, cap);
     if (lane != 0) return;
-    tot[ray] = count;
+    tot[ray] = Sections ? (count > 0 ? min(count + 1, p.n_pts) : 0) : count;
     ray_has[ray] = hit && count > 0;
     if (ray == 0) *first_z = r.rand != nullptr ? fminf(r.first, r.last) : ladder_z(r, p.fix_t, 0);
 }
@@ -281,12 +296,27 @@ __global__ void __launch_bounds__(kScanThreads) sample_scan_kernel(const int* __
     if (t == 0) *n_valid = carry;
 }
 
+// Section `row` (relative to the ray's off) from z0 to z1: its mid z, the
+// point there and the ray's direction, and its length.
+__device__ __forceinline__ void write_section(const Ray& r, int64_t row, float z0, float z1, float* __restrict__ z_out,
+                                              float* __restrict__ pts, float* __restrict__ dirs,
+                                              float* __restrict__ len) {
+    const float mid = __fmul_rn(0.5f, __fadd_rn(z1, z0));
+    z_out[row] = mid;
+    len[row] = __fsub_rn(z1, z0);
+    for (int k = 0; k < 3; ++k) {
+        pts[3 * row + k] = __fadd_rn(r.o[k], __fmul_rn(mid, r.d[k]));
+        dirs[3 * row + k] = r.d[k];
+    }
+}
+
+template <bool Sections>
 __global__ void __launch_bounds__(kThreads) sample_write_kernel(
         Ladder p, const float2* __restrict__ near_far, const float2* __restrict__ clamp,
         const float* __restrict__ first_z,
         const int64_t* __restrict__ off, const int64_t* __restrict__ cnt, const int64_t* __restrict__ n_valid,
-        int64_t budget, int ray_blocks, float* __restrict__ z_out, float* __restrict__ pts,
-        float* __restrict__ dirs) {
+        int64_t budget, int ray_blocks, int cap, float* __restrict__ z_out, float* __restrict__ pts,
+        float* __restrict__ dirs, float* __restrict__ len) {
     if (static_cast<int>(blockIdx.x) >= ray_blocks) {
         // the padding rows [min(n_valid, budget), budget): ray 0's first sample
         const int64_t from = *n_valid < budget ? *n_valid : budget;
@@ -305,6 +335,7 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
             dirs[3 * row + 0] = d0;
             dirs[3 * row + 1] = d1;
             dirs[3 * row + 2] = d2;
+            if constexpr (Sections) len[row] = 0.f;
         }
         return;
     }
@@ -324,13 +355,31 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
         r.last = cl.y;
     }
     int64_t rank = 0;
+    float prev_z = 0.f, first = 0.f;  // sections: the last valid z of the steps before, and the ray's first
+    const int64_t last = cap > 0 ? cap : p.n_pts;  // sections: the ray's samples end at the cap
     for (int base = 0; base < p.n_pts; base += 32) {
         const int j = base + lane;
-        float z, xyz[3];
-        const bool valid = j < p.n_pts && sample_at(p, r, j, z, xyz);
+        float z = 0.f, xyz[3];
+        bool valid = j < p.n_pts && sample_at(p, r, j, z, xyz);
+        if constexpr (Sections) {  // every lane votes, then the samples past the cap drop out
+            const unsigned votes = __ballot_sync(kFull, valid);
+            valid = valid && rank + __popc(votes & ((1u << lane) - 1u)) < last;
+        }
         const unsigned ballot = __ballot_sync(kFull, valid);
-        const int64_t mine = rank + __popc(ballot & ((1u << lane) - 1u));
-        if (valid && mine < c) {
+        const unsigned below = ballot & ((1u << lane) - 1u);
+        const int64_t mine = rank + __popc(below);
+        if constexpr (Sections) {
+            // the section that ends at this sample starts at the next lower valid one
+            const float z_below = __shfl_sync(kFull, z, below ? 31 - __clz(below) : lane);
+            if (valid && mine >= 1 && mine - 1 < c) write_section(r, o + mine - 1, below ? z_below : prev_z, z, z_out,
+                                                                  pts, dirs, len);
+            const float z_top = __shfl_sync(kFull, z, ballot ? 31 - __clz(ballot) : 0);
+            const float z_low = __shfl_sync(kFull, z, ballot ? __ffs(ballot) - 1 : 0);
+            if (ballot) {
+                if (rank == 0) first = z_low;
+                prev_z = z_top;
+            }
+        } else if (valid && mine < c) {
             const int64_t row = o + mine;
             z_out[row] = z;
             for (int k = 0; k < 3; ++k) {
@@ -339,7 +388,16 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
             }
         }
         rank += __popc(ballot);
-        if (rank >= c || at_far(r, p.fix_t, min(base + 31, p.n_pts - 1))) break;
+        if (rank >= (Sections ? min(c + 1, last) : c) || at_far(r, p.fix_t, min(base + 31, p.n_pts - 1))) break;
+    }
+    if constexpr (Sections) {
+        // the last two sections: to z_(c-1) + 2 sd, then of length 0 there. A
+        // walk cut short by cnt saw rank >= cnt + 1 samples, and writes neither
+        if (lane != 0 || rank == 0) return;
+        const float sd = __fmul_rn(__fmul_rn(__fsub_rn(prev_z, first), __frcp_rn(static_cast<float>(p.n_pts))), 0.5f);
+        const float fin = __fadd_rn(prev_z, __fmul_rn(sd, 2.f));
+        if (rank - 1 < c) write_section(r, o + rank - 1, prev_z, fin, z_out, pts, dirs, len);
+        if (rank < c) write_section(r, o + rank, fin, fin, z_out, pts, dirs, len);
     }
 }
 
@@ -378,15 +436,17 @@ bool bad_ladder(int n_rays, int n_grid, int n_pts, long long budget) {
 // n_valid () int64.
 extern "C" int arcnerf_sample_count(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield,
                                     int n_grid, const float* box, const float* inv_voxel, const void* rand, int n_pts,
-                                    float fix_t, int cap, long long budget, void* tot, void* near_far, void* clamp,
-                                    void* first_z, void* ray_has, void* off, void* cnt, void* n_valid, void* stream) {
+                                    float fix_t, int cap, long long budget, int sections, void* tot, void* near_far,
+                                    void* clamp, void* first_z, void* ray_has, void* off, void* cnt, void* n_valid,
+                                    void* stream) {
     if (bad_ladder(n_rays, n_grid, n_pts, budget) || cap < 0) return ARCNERF_BAD_ARGUMENT;
     const Ladder p = make_ladder(rays_o, rays_d, n_rays, bitfield, n_grid, box, inv_voxel, rand, n_pts, fix_t);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    sample_count_kernel<<<blocks, kThreads, 0, s>>>(p, cap, static_cast<int*>(tot), static_cast<float2*>(near_far),
-                                                    static_cast<float2*>(clamp), static_cast<float*>(first_z),
-                                                    static_cast<bool*>(ray_has));
+    auto* kernel = sections ? sample_count_kernel<true> : sample_count_kernel<false>;
+    kernel<<<blocks, kThreads, 0, s>>>(p, cap, static_cast<int*>(tot), static_cast<float2*>(near_far),
+                                       static_cast<float2*>(clamp), static_cast<float*>(first_z),
+                                       static_cast<bool*>(ray_has));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     sample_scan_kernel<<<1, kScanThreads, 0, s>>>(static_cast<const int*>(tot), n_rays, budget,
@@ -396,20 +456,25 @@ extern "C" int arcnerf_sample_count(const void* rays_o, const void* rays_d, int 
 }
 
 // The same ladder, the count's near_far, clamp and first_z, and the scan's
-// off, cnt, n_valid -> the stream: z (budget,), pts and dirs (budget, 3) f32.
+// off, cnt, n_valid -> the stream: z (budget,), pts and dirs (budget, 3) f32,
+// and in the sections mode (len non-null) len (budget,) f32, a ray's samples
+// ending at the count's cap (0: none).
 extern "C" int arcnerf_sample_write(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield,
                                     int n_grid, const float* box, const float* inv_voxel, const void* rand, int n_pts,
                                     float fix_t, const void* near_far, const void* clamp, const void* first_z,
-                                    const void* off, const void* cnt, const void* n_valid, long long budget, void* z,
-                                    void* pts, void* dirs, void* stream) {
+                                    const void* off, const void* cnt, const void* n_valid, long long budget, int cap,
+                                    void* z, void* pts, void* dirs, void* len, void* stream) {
+    if (cap < 0) return ARCNERF_BAD_ARGUMENT;
     if (bad_ladder(n_rays, n_grid, n_pts, budget)) return ARCNERF_BAD_ARGUMENT;
     const Ladder p = make_ladder(rays_o, rays_d, n_rays, bitfield, n_grid, box, inv_voxel, rand, n_pts, fix_t);
     const int ray_blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
     const long long pad_rounds = (budget + kThreads - 1) / kThreads;
     const int pad_blocks = pad_rounds < kPadBlocks ? static_cast<int>(pad_rounds) : kPadBlocks;
-    sample_write_kernel<<<ray_blocks + pad_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto* kernel = len != nullptr ? sample_write_kernel<true> : sample_write_kernel<false>;
+    kernel<<<ray_blocks + pad_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         p, static_cast<const float2*>(near_far), static_cast<const float2*>(clamp), static_cast<const float*>(first_z),
         static_cast<const int64_t*>(off), static_cast<const int64_t*>(cnt), static_cast<const int64_t*>(n_valid),
-        budget, ray_blocks, static_cast<float*>(z), static_cast<float*>(pts), static_cast<float*>(dirs));
+        budget, ray_blocks, cap, static_cast<float*>(z), static_cast<float*>(pts), static_cast<float*>(dirs),
+        static_cast<float*>(len));
     return static_cast<int>(cudaGetLastError());
 }

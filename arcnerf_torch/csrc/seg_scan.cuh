@@ -4,7 +4,9 @@
 // takes W consecutive samples at a time, and each scan runs over the
 // group's lanes with width-W shuffles, so the groups of a warp never mix.
 // Both kernels load a chunk's samples with load_sample, so they read one
-// definition of delta, alpha and o.
+// definition of delta, alpha and o. In the alpha mode (Alpha = true: an
+// SDF's sections) the stream's sigma holds each sample's alpha, and delta
+// and the exponential play no part.
 //
 // Products and sums use the _rn intrinsics, so nvcc contracts nothing into
 // an FMA and the order of every rounding is the one written here (the CPU
@@ -71,12 +73,20 @@ __device__ __forceinline__ Loaded load_row(const float* __restrict__ sigma, cons
     return {in ? z[i] : 0.f, lane == W - 1 && i + 1 < end ? z[i + 1] : 0.f, in ? sigma[i] : 0.f};
 }
 
-template <int W>
+template <int W, bool Alpha = false>
 __device__ __forceinline__ Sample finish_sample(Loaded r, int64_t i, int64_t end, int add_inf_z, unsigned mask,
                                                 int lane) {
     Sample p;
     const bool in = i < end;
     p.z = r.z;
+    if constexpr (Alpha) {
+        p.s_raw = r.s_raw;
+        p.delta = 0.f;
+        p.ex = 1.f;
+        p.alpha = in ? r.s_raw : 0.f;
+        p.o = in ? __fadd_rn(__fsub_rn(1.f, p.alpha), 1e-10f) : 1.f;
+        return p;
+    }
     float z_next = __shfl_down_sync(mask, p.z, 1, W);
     if (lane == W - 1) z_next = r.z_edge;
     if (i + 1 < end) {
@@ -93,10 +103,10 @@ __device__ __forceinline__ Sample finish_sample(Loaded r, int64_t i, int64_t end
     return p;
 }
 
-template <int W>
+template <int W, bool Alpha = false>
 __device__ __forceinline__ Sample load_sample(const float* __restrict__ sigma, const float* __restrict__ z,
                                               int64_t i, int64_t end, int add_inf_z, unsigned mask, int lane) {
-    return finish_sample<W>(load_row<W>(sigma, z, i, end, lane), i, end, add_inf_z, mask, lane);
+    return finish_sample<W, Alpha>(load_row<W>(sigma, z, i, end, lane), i, end, add_inf_z, mask, lane);
 }
 
 // An affine map R -> a + o R; compose(f, g) is f after g: R -> f(g(R)).

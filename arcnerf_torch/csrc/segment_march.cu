@@ -39,6 +39,9 @@
 // forward is itself an associative scan); the _rn intrinsics keep nvcc from
 // contracting into FMAs, so tests/test_torch_march_numerics.py models the
 // order of every rounding.
+// The alpha mode (mode 2, for an SDF's sections) reads each row's alpha
+// from sigma and composites it as it is; it is a template parameter, so the
+// sigma mode compiles as before.
 
 #include "seg_scan.cuh"
 
@@ -51,7 +54,7 @@ __device__ __forceinline__ float3 load_rgb(const float* __restrict__ rgb, int64_
     return i < end ? make_float3(rgb[3 * i + 0], rgb[3 * i + 1], rgb[3 * i + 2]) : make_float3(0.f, 0.f, 0.f);
 }
 
-template <int W>
+template <int W, bool Alpha>
 __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
         const float* __restrict__ sigma, const float* __restrict__ rgb, const float* __restrict__ z,
         const int64_t* __restrict__ off, const int64_t* __restrict__ cnt, int n_rays, int64_t k_total,
@@ -79,7 +82,7 @@ __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
                 row = seg_scan::load_row<W>(sigma, z, i + W, end, lane);
                 col = load_rgb(rgb, i + W, end);
             }
-            const seg_scan::Sample p = seg_scan::finish_sample<W>(here, i, end, add_inf_z, mask, lane);
+            const seg_scan::Sample p = seg_scan::finish_sample<W, Alpha>(here, i, end, add_inf_z, mask, lane);
             const float incl = seg_scan::product_scan<W>(mask, lane, p.o);
             const float excl = __shfl_up_sync(mask, incl, 1, W);
             const float t = lane == 0 ? carry : __fmul_rn(carry, excl);
@@ -121,24 +124,32 @@ __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
 
 template <int W>
 void launch(const float* sigma, const float* rgb, const float* z, const int64_t* off, const int64_t* cnt, int n_rays,
-            int64_t k_total, int add_inf_z, const float* bkg, int white_bkg, float* out_rgb, float* out_depth,
+            int64_t k_total, int mode, const float* bkg, int white_bkg, float* out_rgb, float* out_depth,
             float* out_mask, float* out_trans_end, cudaStream_t s) {
     constexpr int kRaysPerBlock = kThreads / W;
     const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    segment_march_fwd_kernel<W><<<blocks, kThreads, 0, s>>>(sigma, rgb, z, off, cnt, n_rays, k_total, add_inf_z, bkg,
-                                                            white_bkg, out_rgb, out_depth, out_mask, out_trans_end);
+    if (mode == 2) {
+        segment_march_fwd_kernel<W, true><<<blocks, kThreads, 0, s>>>(sigma, rgb, z, off, cnt, n_rays, k_total, 0, bkg,
+                                                                      white_bkg, out_rgb, out_depth, out_mask,
+                                                                      out_trans_end);
+    } else {
+        segment_march_fwd_kernel<W, false><<<blocks, kThreads, 0, s>>>(sigma, rgb, z, off, cnt, n_rays, k_total, mode,
+                                                                       bkg, white_bkg, out_rgb, out_depth, out_mask,
+                                                                       out_trans_end);
+    }
 }
 
 }  // namespace
 
-// sigma (K,), rgb (K, 3), z (K,) f32; off/cnt (n_rays,) int64; bkg
-// (n_rays, 3) f32 or null; group: lanes a ray, 32 or 8; outputs rgb
-// (n_rays, 3), depth/mask/trans_end (n_rays,) f32.
+// sigma (K,), rgb (K, 3), z (K,) f32; off/cnt (n_rays,) int64; mode: 0 or 1
+// the sigma mode without or with add_inf_z, 2 the alpha mode (sigma holds
+// alpha); bkg (n_rays, 3) f32 or null; group: lanes a ray, 32 or 8; outputs
+// rgb (n_rays, 3), depth/mask/trans_end (n_rays,) f32.
 extern "C" int arcnerf_segment_march_fwd(const void* sigma, const void* rgb, const void* z, const void* off,
-                                         const void* cnt, int n_rays, long long k_total, int add_inf_z,
+                                         const void* cnt, int n_rays, long long k_total, int mode,
                                          const void* bkg, int white_bkg, int group, void* out_rgb, void* out_depth,
                                          void* out_mask, void* out_trans_end, void* stream) {
-    if (n_rays <= 0 || k_total < 0) return ARCNERF_BAD_ARGUMENT;
+    if (n_rays <= 0 || k_total < 0 || mode < 0 || mode > 2) return ARCNERF_BAD_ARGUMENT;
     const auto* sp = static_cast<const float*>(sigma);
     const auto* cp = static_cast<const float*>(rgb);
     const auto* zp = static_cast<const float*>(z);
@@ -151,8 +162,8 @@ extern "C" int arcnerf_segment_march_fwd(const void* sigma, const void* rgb, con
     auto* ot = static_cast<float*>(out_trans_end);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (group) {
-        case 32: launch<32>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z, bp, white_bkg, orgb, od, om, ot, s); break;
-        case 8: launch<8>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z, bp, white_bkg, orgb, od, om, ot, s); break;
+        case 32: launch<32>(sp, cp, zp, op, np, n_rays, k_total, mode, bp, white_bkg, orgb, od, om, ot, s); break;
+        case 8: launch<8>(sp, cp, zp, op, np, n_rays, k_total, mode, bp, white_bkg, orgb, od, om, ot, s); break;
         default: return ARCNERF_BAD_ARGUMENT;
     }
     return static_cast<int>(cudaGetLastError());

@@ -39,6 +39,8 @@
 //   weight of its float's sample by a shuffle.
 // Tree order replaces the sequential order of the plain version (the JAX
 // forward is itself an associative scan); no division by o_i.
+// The alpha mode (mode 2, for an SDF's sections) reads alpha from sigma and
+// returns dalpha in d_sigma; a template parameter, as in kernel C.
 
 #include "seg_scan.cuh"
 
@@ -47,7 +49,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kGroup = 32;  // lanes a ray
 
-template <int W>
+template <int W, bool Alpha>
 __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
         const float* __restrict__ sigma, const float* __restrict__ rgb, const float* __restrict__ z,
         const int64_t* __restrict__ off, const int64_t* __restrict__ cnt, int n_rays, int64_t k_total,
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
     seg_scan::Sample p{};
     for (int k = 0; k < n_chunks; ++k) {
         const int64_t i = start + static_cast<int64_t>(k) * W + lane;
-        p = seg_scan::load_sample<W>(sigma, z, i, end, add_inf_z, mask, lane);
+        p = seg_scan::load_sample<W, Alpha>(sigma, z, i, end, add_inf_z, mask, lane);
         const float incl = seg_scan::product_scan<W>(mask, lane, p.o);
         const float excl = __shfl_up_sync(mask, incl, 1, W);
         t = lane == 0 ? carry : __fmul_rn(carry, excl);
@@ -93,7 +95,7 @@ __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
         const int64_t i = base + lane;
         const bool in = i < end;
         if (k < n_chunks - 1) {  // the last chunk is still in registers
-            p = seg_scan::load_sample<W>(sigma, z, i, end, add_inf_z, mask, lane);
+            p = seg_scan::load_sample<W, Alpha>(sigma, z, i, end, add_inf_z, mask, lane);
             t = d_sigma[i];
         }
         float G = 0.f;
@@ -107,7 +109,11 @@ __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
         R = seg_scan::apply({__shfl_sync(mask, incl.a, 0, W), __shfl_sync(mask, incl.o, 0, W)}, R);
         if (in) {
             const float d_alpha = t * (G - r_i);
-            d_sigma[i] = (p.s_raw > 0.f && p.s_raw < 1e10f) ? d_alpha * p.delta * p.ex : 0.f;
+            if constexpr (Alpha) {
+                d_sigma[i] = d_alpha;
+            } else {
+                d_sigma[i] = (p.s_raw > 0.f && p.s_raw < 1e10f) ? d_alpha * p.delta * p.ex : 0.f;
+            }
         }
         // d_rgb[3 base + e] for e = q W + lane: sample e / 3, colour e % 3
         const float w = t * p.alpha;
@@ -123,19 +129,21 @@ __global__ void __launch_bounds__(kThreads) segment_march_bwd_kernel(
 
 }  // namespace
 
-// sigma (K,), rgb (K, 3), z (K,) f32; off/cnt (n_rays,) int64; bkg
-// (n_rays, 3) f32 or null; g_rgb (n_rays, 3), g_depth/g_mask (n_rays,) f32;
-// d_sigma (K,) and d_rgb (K, 3) f32, zeroed by the caller.
+// sigma (K,), rgb (K, 3), z (K,) f32; off/cnt (n_rays,) int64; mode: 0 or 1
+// the sigma mode without or with add_inf_z, 2 the alpha mode; bkg (n_rays,
+// 3) f32 or null; g_rgb (n_rays, 3), g_depth/g_mask (n_rays,) f32; d_sigma
+// (K,) and d_rgb (K, 3) f32, zeroed by the caller.
 extern "C" int arcnerf_segment_march_bwd(const void* sigma, const void* rgb, const void* z, const void* off,
-                                         const void* cnt, int n_rays, long long k_total, int add_inf_z,
+                                         const void* cnt, int n_rays, long long k_total, int mode,
                                          const void* bkg, int white_bkg, const void* g_rgb, const void* g_depth,
                                          const void* g_mask, void* d_sigma, void* d_rgb, void* stream) {
-    if (n_rays <= 0 || k_total < 0) return ARCNERF_BAD_ARGUMENT;
+    if (n_rays <= 0 || k_total < 0 || mode < 0 || mode > 2) return ARCNERF_BAD_ARGUMENT;
     constexpr int kRaysPerBlock = kThreads / kGroup;
     const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    segment_march_bwd_kernel<kGroup><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto* kernel = mode == 2 ? segment_march_bwd_kernel<kGroup, true> : segment_march_bwd_kernel<kGroup, false>;
+    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sigma), static_cast<const float*>(rgb), static_cast<const float*>(z),
-        static_cast<const int64_t*>(off), static_cast<const int64_t*>(cnt), n_rays, k_total, add_inf_z,
+        static_cast<const int64_t*>(off), static_cast<const int64_t*>(cnt), n_rays, k_total, mode == 2 ? 0 : mode,
         static_cast<const float*>(bkg), white_bkg, static_cast<const float*>(g_rgb),
         static_cast<const float*>(g_depth), static_cast<const float*>(g_mask), static_cast<float*>(d_sigma),
         static_cast<float*>(d_rgb));

@@ -1,10 +1,10 @@
 """Loss factory and weighted-sum composition (counterpart of
 ``arcnerf_tpu/losses/__init__.py``: ``_error_fn``, ``_masked_mean``,
-``ImgLoss``, ``AllLoss``, ``build_loss``).
+``ImgLoss``, ``MaskLoss``, ``EikonalLoss``, ``AllLoss``, ``build_loss``).
 
 A loss is ``loss(inputs, output) -> scalar tensor``; ``AllLoss`` sums the
 configured ones with their weights and returns {names, sum, <name>: value}
-as the JAX package does. Only the image loss is ported so far.
+as the JAX package does. The image, mask and eikonal losses are ported.
 """
 
 import torch
@@ -69,6 +69,51 @@ class ImgLoss:
                     total = total + w * _masked_mean(self.fn(output[key], gt), mask)
                     count += 1
         return total if count else torch.zeros((), device=gt.device)
+
+
+@LOSS_REGISTRY.register()
+class MaskLoss:
+    """Opacity against the ground-truth mask (MSE, L1 or BCE) over the
+    ``mask`` output keys (plain, ``_coarse`` and ``_fine``)."""
+
+    def __init__(self, cfgs=None):
+        self.loss_type = get_value_from_cfgs_field(cfgs, "loss_type", "MSE")
+        self.fn = _error_fn(self.loss_type, float(get_value_from_cfgs_field(cfgs, "delta", 1.0)))
+
+    def __call__(self, inputs, output):
+        gt = inputs["mask"]
+        total, count = 0.0, 0
+        for key in ("mask", "mask_coarse", "mask_fine"):
+            if output.get(key) is not None:
+                total = total + self.fn(output[key], gt).mean()
+                count += 1
+        return total if count else torch.zeros((), device=gt.device)
+
+
+@LOSS_REGISTRY.register()
+class EikonalLoss:
+    """(|grad sdf| - 1)^2 averaged over the points of the ``key`` output
+    (``normal_pts`` by default; plain, ``_coarse`` and ``_fine``). Where the
+    output also holds ``<key>_valid`` (a compacted stream's kept rows),
+    only those rows count."""
+
+    def __init__(self, cfgs=None):
+        self.key = get_value_from_cfgs_field(cfgs, "key", "normal_pts")
+
+    def __call__(self, inputs, output):
+        total, count = 0.0, 0
+        for suffix in ("", "_coarse", "_fine"):
+            key = self.key + suffix
+            if output.get(key) is None:
+                continue
+            err = (torch.linalg.vector_norm(output[key], dim=-1) - 1.0) ** 2
+            valid = output.get(key + "_valid")
+            if valid is None:
+                total = total + err.mean()
+            else:
+                total = total + (err * valid).sum() / valid.sum().clamp_min(1)
+            count += 1
+        return total if count else torch.zeros((), device=inputs["img"].device)
 
 
 class AllLoss:

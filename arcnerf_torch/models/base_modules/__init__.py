@@ -11,7 +11,7 @@ import inspect
 from ...utils.cfgs import Obj, obj_to_dict
 from ...utils.registry import ENCODER_REGISTRY, GEO_MODEL_REGISTRY, RADIANCE_MODEL_REGISTRY
 from .encoding import HashGridEmbedder, SHEmbedder  # noqa: F401
-from .networks import FusedMLPGeoNet, FusedMLPRadianceNet  # noqa: F401
+from .networks import FusedMLPGeoNet, FusedMLPRadianceNet, GeoNet  # noqa: F401
 
 
 def to_plain_dict(cfgs):
@@ -35,10 +35,10 @@ def build_encoder(cfgs, generator=None):
 
 
 def build_geo_model(cfgs, generator=None):
-    """Geometry net factory. Only the fused nets are ported."""
+    """Geometry net factory: GeoNet (the default) and FusedMLPGeoNet."""
     return _build(GEO_MODEL_REGISTRY, cfgs, "GeoNet", generator)
 
 
 def build_radiance_model(cfgs, generator=None):
-    """Radiance net factory. Only the fused nets are ported."""
+    """Radiance net factory. Only the fused net is ported."""
     return _build(RADIANCE_MODEL_REGISTRY, cfgs, "RadianceNet", generator)

@@ -11,9 +11,19 @@ versions of the JAX CPU element path (``_gather_cols_f32`` and its VJP):
 the same entry math and corner order, each table entry read rounded to
 bf16, sums and the table gradient in f32.
 
+Where the points require a gradient (an SDF's normal), the encoding also
+gives d/dxyz: ``hash_encode_dx`` (kernel K, ``csrc/hash_dx.cu``) takes
+dL/d(encoding) through the derivatives of the trilinear weights, and its
+own backward (kernel L, ``hash_dx_bwd``) goes into the table (a scatter
+like E's, with derivative weights) and into dL/d(encoding) (a gather like
+B's). The JAX package takes the same derivative with ``jax.grad`` through
+the unfused element path; ``hash_encode_dx_reference`` and
+``hash_dx_bwd_reference`` are the plain versions.
+
 All encoders expose ``out_dim`` and ``forward(x) -> (B, out_dim)``.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -191,6 +201,78 @@ def hash_encode_bwd_reference(xyz, g, table_shape, res, aabb_min, aabb_len, vari
     return grad.reshape(table_shape)
 
 
+def _corner_weight_grads(xyz, res, aabb_min, aabb_len, table_size, variant):
+    """As ``_corners_and_weights``, plus per corner the (B, L, 3) derivative
+    of its weight with respect to the point's fraction in the cell along
+    each axis: d w_c / d f_a = (+1 or -1) times the other two axes'
+    factors. Returns (entries, dweights)."""
+    dev = xyz.device
+    res_i = torch.as_tensor(np.asarray(res), dtype=torch.int64, device=dev)
+    mn = torch.as_tensor(np.asarray(aabb_min, np.float32), device=dev)
+    ln = torch.as_tensor(np.asarray(aabb_len, np.float32), device=dev)
+    p = ((xyz - mn) / ln)[:, None, :] * res_i.to(torch.float32)[None, :, None]
+    i0 = torch.minimum(torch.floor(p).to(torch.int64).clamp_min(0), (res_i - 1)[None, :, None])
+    f = p - i0.to(xyz.dtype)
+    wts, sign = (1.0 - f, f), (-1.0, 1.0)
+    entries = _corner_entries(i0, res_i, table_size, variant)
+    dweights = []
+    for cx, cy, cz in _CORNER_OFFSETS:
+        wx, wy, wz = wts[cx][..., 0], wts[cy][..., 1], wts[cz][..., 2]
+        dweights.append(torch.stack([sign[cx] * (wy * wz), sign[cy] * (wx * wz), sign[cz] * (wx * wy)], -1))
+    return entries, dweights
+
+
+def _read_table(table, read_bf16):
+    n_levels, table_size, n_feat = table.shape
+    tab = table.reshape(n_levels * table_size, n_feat)
+    return tab.to(torch.bfloat16).to(table.dtype) if read_bf16 else tab
+
+
+def _level_scale(xyz, res, aabb_len):
+    """(1, L, 3): d f / d xyz per level and axis, res_l / len_a."""
+    res_f = torch.as_tensor(np.asarray(res), dtype=xyz.dtype, device=xyz.device)
+    ln = torch.as_tensor(np.asarray(aabb_len, np.float32), device=xyz.device).to(xyz.dtype)
+    return res_f[None, :, None] / ln[None, None, :]
+
+
+def hash_encode_dx_reference(xyz, table, g, res, aabb_min, aabb_len, variant, read_bf16=True):
+    """Plain version of the encoding's input gradient: dL/dxyz (B, 3) for
+    dL/d(encoding) ``g`` (B, L F), the table read as the forward reads it.
+    Per level and axis sum_c sum_f g_f T[e_c, f] d w_c / d f_a, times
+    res_l / len_a, summed over the levels. The floor and the clip of the
+    cell index carry no gradient (as under ``jax.grad``)."""
+    n_levels, table_size, n_feat = table.shape
+    entries, dweights = _corner_weight_grads(xyz, res, aabb_min, aabb_len, table_size, variant)
+    tab = _read_table(table, read_bf16)
+    g = g.reshape(xyz.shape[0], n_levels, n_feat)
+    level_off = (torch.arange(n_levels, device=xyz.device, dtype=torch.int64) * table_size)[None, :]
+    gp = torch.zeros(xyz.shape[0], n_levels, 3, dtype=g.dtype, device=xyz.device)
+    for e, dw in zip(entries, dweights):
+        gp = gp + (tab[e + level_off] * g).sum(-1)[..., None] * dw
+    return (gp * _level_scale(xyz, res, aabb_len)).sum(1)
+
+
+def hash_dx_bwd_reference(xyz, table, g, g_dx, res, aabb_min, aabb_len, variant, read_bf16=True):
+    """Plain version of the input gradient's backward for its gradient
+    ``g_dx`` (B, 3): (the table's (L, T, F), straight through the bf16
+    read; g's (B, L F)). With u_c = sum_a g_dx_a res_l / len_a d w_c / d f_a
+    per point, level and corner: the table gains u_c g at entry e_c, and g
+    gains sum_c u_c T[e_c]. No gradient goes to the points."""
+    n_levels, table_size, n_feat = table.shape
+    entries, dweights = _corner_weight_grads(xyz, res, aabb_min, aabb_len, table_size, variant)
+    tab = _read_table(table, read_bf16)
+    g = g.reshape(xyz.shape[0], n_levels, n_feat)
+    q = g_dx[:, None, :] * _level_scale(xyz, res, aabb_len)  # (B, L, 3)
+    level_off = (torch.arange(n_levels, device=xyz.device, dtype=torch.int64) * table_size)[None, :]
+    d_table = torch.zeros(n_levels * table_size, n_feat, dtype=table.dtype, device=xyz.device)
+    d_g = torch.zeros_like(g)
+    for e, dw in zip(entries, dweights):
+        u = (dw * q).sum(-1)[..., None]  # (B, L, 1)
+        d_table.index_add_(0, (e + level_off).reshape(-1), (u * g).reshape(-1, n_feat))
+        d_g = d_g + u * tab[e + level_off]
+    return d_table.reshape(table.shape), d_g.reshape(xyz.shape[0], n_levels * n_feat)
+
+
 def _kernel_args(xyz, table_shape, res, res_dev, name):
     n_levels, table_size, n_feat = table_shape
     log2_t = int(table_size).bit_length() - 1
@@ -225,6 +307,99 @@ def hash_encode_bwd(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_d
     return grad
 
 
+def hash_encode_dx(xyz, table, g, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
+    """dL/dxyz (B, 3) of the encoding for its gradient ``g`` (B, L F). A
+    CPU tensor takes ``hash_encode_dx_reference``; a CUDA tensor launches
+    kernel K or raises."""
+    if xyz.is_cpu:
+        return hash_encode_dx_reference(xyz, table, g, res, aabb_min, aabb_len, variant, read_bf16)
+    _, log2_t, _, res_dev = _kernel_args(xyz, table.shape, res, res_dev, "hash_encode_dx")
+    dx = cuda_lib.ops().hash_dx(xyz, table, g, res_dev, log2_t, aabb_min, aabb_len, _VARIANTS[variant],
+                                bool(read_bf16))
+    if xyz.shape[0] > 0:
+        hash_encode_dx.launches += 1
+    return dx
+
+
+def hash_dx_bwd(xyz, table, g, g_dx, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
+    """(table gradient (L, T, F), g's gradient (B, L F)) of
+    ``hash_encode_dx`` for its gradient ``g_dx`` (B, 3). A CPU tensor takes
+    ``hash_dx_bwd_reference``; a CUDA tensor launches kernel L or raises."""
+    if xyz.is_cpu:
+        return hash_dx_bwd_reference(xyz, table, g, g_dx, res, aabb_min, aabb_len, variant, read_bf16)
+    _, log2_t, _, res_dev = _kernel_args(xyz, table.shape, res, res_dev, "hash_dx_bwd")
+    d_table, d_g = cuda_lib.ops().hash_dx_bwd(xyz, table, g, g_dx, res_dev, log2_t, aabb_min, aabb_len,
+                                              _VARIANTS[variant], bool(read_bf16))
+    if xyz.shape[0] > 0:
+        hash_dx_bwd.launches += 1
+    return d_table, d_g
+
+
+class _HashDxFunction(torch.autograd.Function):
+    """The input gradient as a function of the table and of g, with kernel
+    L (its plain version on the CPU) as its backward: the eikonal loss and
+    the radiance net reach the table and the geometry chain through the
+    normal. The points get no gradient: they are not learned."""
+
+    @staticmethod
+    def forward(ctx, xyz, table, g, res, aabb_min, aabb_len, variant, read_bf16, res_dev):
+        ctx.save_for_backward(xyz, table, g)
+        ctx.args = (res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+        return hash_encode_dx(xyz, table, g.contiguous(), res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+
+    @staticmethod
+    def backward(ctx, g_dx):
+        xyz, table, g = ctx.saved_tensors
+        d_table, d_g = hash_dx_bwd(xyz, table, g.contiguous(), g_dx.contiguous(), *ctx.args)
+        return None, d_table, d_g, None, None, None, None, None, None
+
+
+# the open ``input_grad`` blocks, innermost last
+_INPUT_GRAD = []
+
+
+@contextlib.contextmanager
+def input_grad():
+    """Encodings of points that require a gradient, made inside the block,
+    give d/dxyz until the block ends; afterwards their backward gives the
+    table's gradient alone. An SDF takes its normal inside the block, and
+    the loss's backward then spends no launch on the points' gradient,
+    which nothing reads."""
+    live = {"on": True}
+    _INPUT_GRAD.append(live)
+    try:
+        yield
+    finally:
+        live["on"] = False
+        _INPUT_GRAD.remove(live)
+
+
+class _HashInputLink(torch.autograd.Function):
+    """Passes the encoding through unchanged and adds its xyz gradient:
+    ``hash_encode_dx`` of the gradient that reaches the encoding, a
+    differentiable function of it and of the table when the backward
+    builds a graph (``create_graph``). The encoding's table gradient stays
+    with ``_HashEncodeFunction``, so taking a normal launches no kernel E."""
+
+    @staticmethod
+    def forward(ctx, enc, xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev, live):
+        ctx.save_for_backward(xyz, table)
+        ctx.args = (res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+        ctx.live = live
+        return enc.view_as(enc)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = None
+        if ctx.live is None or ctx.live["on"]:
+            xyz, table = ctx.saved_tensors
+            if torch.is_grad_enabled():
+                dx = _HashDxFunction.apply(xyz.detach(), table, g, *ctx.args)
+            else:
+                dx = hash_encode_dx(xyz.detach(), table.detach(), g.contiguous(), *ctx.args)
+        return g, dx, None, None, None, None, None, None, None, None
+
+
 class _HashEncodeFunction(torch.autograd.Function):
     """Encoding with the table scatter as its backward: kernels B and E on
     the card, their plain versions on the CPU. No xyz gradient."""
@@ -250,10 +425,19 @@ class _HashEncodeFunction(torch.autograd.Function):
 def hash_encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, res_dev=None):
     """Hash-grid encoding. A CPU tensor takes the plain versions; a CUDA
     tensor launches kernel B, and kernel E in the backward, or raises.
-    ``res_dev`` optionally gives ``res`` as an int32 tensor already on the
-    device."""
+    Points that require a gradient also get d/dxyz (``_HashInputLink``:
+    kernel K, and kernel L in its backward). ``res_dev`` optionally gives
+    ``res`` as an int32 tensor already on the device."""
     if not (xyz.is_cpu or xyz.is_cuda):  # the binding checks the rest; this spares a build
         raise ValueError("hash_encode: expected CPU or CUDA tensors, got {}".format(xyz.device))
+    if torch.is_grad_enabled() and xyz.requires_grad:
+        enc = _encode(xyz.detach(), table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+        live = _INPUT_GRAD[-1] if _INPUT_GRAD else None
+        return _HashInputLink.apply(enc, xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev, live)
+    return _encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
+
+
+def _encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev):
     if torch.is_grad_enabled() and table.requires_grad:
         return _HashEncodeFunction.apply(xyz, table, res, aabb_min, aabb_len, variant, read_bf16, res_dev)
     if xyz.is_cpu:
@@ -263,6 +447,8 @@ def hash_encode(xyz, table, res, aabb_min, aabb_len, variant, read_bf16=True, re
 
 hash_encode.launches = 0
 hash_encode_bwd.launches = 0
+hash_encode_dx.launches = 0
+hash_dx_bwd.launches = 0
 
 
 @ENCODER_REGISTRY.register()

@@ -8,12 +8,13 @@ window mode, ``_compact_sel_aux``, ``_compact_sel``, ``_compact_budget``,
 training draws (sample jitter, sigma noise) come from a ``torch.Generator``
 passed down from the trainer. Where the bound walks its fix-step occupancy
 ladder, ``forward`` samples and compacts in one (``sample_compact``, a
-kernel on the card) and builds no (rays, samples) grid. Surface rendering
-waits for the SDF models.
+kernel on the card) and builds no (rays, samples) grid; for an SDF model
+it writes the model's sections. Surface rendering is not ported.
 """
 
 import torch
 
+from ..geometry.transformation import normalize
 from ..render.ray_helper import march_group, segment_march
 from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
@@ -41,6 +42,7 @@ class FgModel(Base3dModel):
         params = {
             "bkg_color": get_value_from_cfgs_field(obj_bound, "bkg_color", [0.0, 0.0, 0.0]),
             "depth_far": get_value_from_cfgs_field(obj_bound, "depth_far", 10.0),
+            "normal": get_value_from_cfgs_field(obj_bound, "normal", [0.0, 1.0, 0.0]),
             "max_allowance": get_value_from_cfgs_field(obj_bound, "log_max_allowance", -1),
             "eval_max_pts_per_ray": get_value_from_cfgs_field(obj_bound, "eval_max_pts_per_ray", None),
         }
@@ -67,11 +69,13 @@ class FgModel(Base3dModel):
     def fuses_sampling(self, bound_state, get_progress=False, cap_offset=None):
         """Whether ``forward`` samples and compacts in one
         (``sample_compact``, a kernel on the card): the bound walks its
-        fix-step occupancy ladder, the masks are scattered, a point budget
-        applies, and neither a window (``cap_offset``) nor progress outputs
-        are asked for. Everything else needs the (rays, n_pts) grid."""
+        fix-step occupancy ladder, the masks are scattered (or the model
+        takes an SDF's sections), a point budget applies, and neither a
+        window (``cap_offset``) nor progress outputs are asked for.
+        Everything else needs the (rays, n_pts) grid."""
         budget = self.get_render_cfgs("max_allowance")
-        return (self.obj_bound.occupancy_ladder(bound_state or {}) and self.use_scattered_masks()
+        return (self.obj_bound.occupancy_ladder(bound_state or {})
+                and (self.use_scattered_masks() or self.stream_sections())
                 and isinstance(budget, int) and budget > 0 and cap_offset is None and not get_progress)
 
     # -------------------------------------------------------------- forward
@@ -150,13 +154,18 @@ class FgModel(Base3dModel):
             if self.get_ray_cfgs("perturb") and not inference_only and generator is not None:
                 rand = torch.rand((n_rays, n_pts), generator=generator, dtype=rays_o.dtype, device=rays_o.device)
             plan = sample_count(self.obj_bound.get_obj_bound(), bound_state["bitfield"], rays_o, rays_d, n_pts,
-                                budget, cap, rand)
+                                budget, cap, rand, sections=self.stream_sections())
         with profiler.span("model.compact"):
             stream = sample_write(plan)
             if inference_only and profiler.active():  # training counts its steps outside the captured step
                 profiler.count_compact(plan["n_valid"], budget)
                 profiler.count("sample.fused", 1)
         return dict(inputs, stream=stream), plan["ray_has"], plan["n_valid"]
+
+    def stream_sections(self):
+        """Whether the fused sampler writes an SDF's sections (SdfModel)
+        rather than the samples."""
+        return False
 
     def _forward(self, inputs, inference_only=True, get_progress=False, generator=None):
         raise NotImplementedError("implement _forward in the concrete model")
@@ -273,6 +282,9 @@ class FgModel(Base3dModel):
                 output[k] = torch.where(m, v, float(render_cfgs["depth_far"]))
             elif k.startswith("mask"):
                 output[k] = torch.where(m, v, 0.0)
+            elif k in ("normal", "normal_coarse", "normal_fine"):  # per ray; a stream's normal_pts is not
+                fill = normalize(device_constant(render_cfgs["normal"], v.dtype, v.device))
+                output[k] = torch.where(m, v, fill.expand(v.shape))
             elif k.startswith("progress"):
                 output[k] = torch.where(m, v, 1.0 if "trans_shift" in k else 0.0)
             else:

@@ -54,8 +54,11 @@ _SIGNATURES = {
     "arcnerf_lane_gather": [_P, _LL, _LL, _P, _LL, _LL, _P, _P],
     "arcnerf_scatter_add_rows": [_P, _LL, _I, _P, _P, _LL, _P, _LL, _P],
     "arcnerf_build_update_rows": [_P, _P, _LL, _IP, _I, _I, _P, _P],
-    "arcnerf_sample_count": [_P, _P, _I, _P, _I, _F, _F, _P, _I, _FV, _I, _LL] + [_P] * 9,
-    "arcnerf_sample_write": [_P, _P, _I, _P, _I, _F, _F, _P, _I, _FV, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "arcnerf_sample_count": [_P, _P, _I, _P, _I, _F, _F, _P, _I, _FV, _I, _LL, _I] + [_P] * 9,
+    "arcnerf_sample_write": [_P, _P, _I, _P, _I, _F, _F, _P, _I, _FV, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P,
+                             _P, _P],
+    "arcnerf_hash_dx": [_P, _LL, _P, _P, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P],
+    "arcnerf_hash_dx_bwd": [_P, _LL, _P, _P, _P, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P, _P],
 }
 
 _ops = None

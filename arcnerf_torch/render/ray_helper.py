@@ -248,13 +248,15 @@ def march_group(cap=None):
     return CAPPED_GROUP if cap and int(cap) <= CAPPED_MAX else TRAIN_GROUP
 
 
-def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False):
+def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, alpha=False):
     """Plain version of the compositing on the compacted stream.
 
     Each ray's segment [off, off + cnt) (clipped to the stream) is gathered
     into a (N_rays, max cnt) grid; nothing past a segment is read. Returns
     rgb (N_rays, 3), depth, mask, trans_end (N_rays,). ``bkg`` is a
-    (N_rays, 3) background composited with trans_end."""
+    (N_rays, 3) background composited with trans_end. With ``alpha`` the
+    stream's ``sigma`` holds each sample's alpha (an SDF's sections), which
+    is composited as it is: no delta, no relu."""
     k_total = sigma.shape[0]
     start = off.clamp_max(k_total)
     n = (off + cnt).clamp_max(k_total) - start  # in-stream samples per ray
@@ -269,8 +271,11 @@ def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=N
     deltas = torch.where(deltas.abs() < 1e-5, 0.0, deltas)
     if add_inf_z:
         deltas = torch.where(inseg & ~has_next, 1e10, deltas)
-    s = torch.where(inseg, sigma[idx], 0.0).relu().clamp_max(1e10)
-    alpha = torch.where(inseg, 1.0 - torch.exp(-s * deltas), 0.0)
+    if alpha:
+        alpha = torch.where(inseg, sigma[idx], 0.0)
+    else:
+        s = torch.where(inseg, sigma[idx], 0.0).relu().clamp_max(1e10)
+        alpha = torch.where(inseg, 1.0 - torch.exp(-s * deltas), 0.0)
     one_m_alpha = 1.0 - alpha + 1e-10
     trans_incl = torch.cumprod(one_m_alpha, dim=1)
     trans = torch.cat([torch.ones_like(trans_incl[:, :1]), trans_incl[:, :-1]], 1)
@@ -288,7 +293,7 @@ def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=N
 
 
 def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None,
-                                white_bkg=False):
+                                white_bkg=False, alpha=False):
     """Plain version of the gradient of the compositing with respect to
     sigma (K,) and radiance (K, 3), given those of rgb (N_rays, 3), depth and
     mask (N_rays,). The same recurrence as kernel F, walked over the
@@ -296,7 +301,8 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
     + 1e-10, T_i the exclusive transmittance and G_i = dM + z_i dD + c_i . dRGB
     (minus sum(dRGB) under ``white_bkg``), R starts at bkg . dRGB and goes
     back as R <- alpha_i G_i + o_i R; dalpha_i = T_i (G_i - R_i). Rows past
-    every segment get 0."""
+    every segment get 0. With ``alpha`` the first gradient is dalpha
+    itself (``sigma`` holds alpha)."""
     k_total = sigma.shape[0]
     start = off.clamp_max(k_total)
     n = (off + cnt).clamp_max(k_total) - start
@@ -312,8 +318,9 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
     if add_inf_z:
         deltas = torch.where(inseg & ~has_next, 1e10, deltas)
     s_raw = torch.where(inseg, sigma[idx], 0.0)
+    alpha_mode = alpha
     ex = torch.exp(-s_raw.relu().clamp_max(1e10) * deltas)
-    alpha = torch.where(inseg, 1.0 - ex, 0.0)
+    alpha = s_raw if alpha_mode else torch.where(inseg, 1.0 - ex, 0.0)
     o = 1.0 - alpha + 1e-10
     trans = torch.cat([torch.ones_like(o[:, :1]), torch.cumprod(o, dim=1)[:, :-1]], 1)
     c = torch.where(inseg[..., None], radiance[idx], 0.0)
@@ -328,8 +335,11 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
     for j in reversed(range(m)):
         d_alpha[:, j] = trans[:, j] * (G[:, j] - R)
         R = torch.where(inseg[:, j], alpha[:, j] * G[:, j] + o[:, j] * R, R)
-    active = inseg & (s_raw > 0) & (s_raw < 1e10)
-    d_s = torch.where(active, d_alpha * deltas * ex, 0.0)
+    if alpha_mode:
+        d_s = torch.where(inseg, d_alpha, 0.0)
+    else:
+        active = inseg & (s_raw > 0) & (s_raw < 1e10)
+        d_s = torch.where(active, d_alpha * deltas * ex, 0.0)
     ray = torch.arange(off.shape[0], device=sigma.device)[:, None].expand_as(idx)
     d_sigma = torch.zeros_like(sigma)
     d_sigma[idx[inseg]] = d_s[inseg]
@@ -338,26 +348,28 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
     return d_sigma, d_rgb
 
 
-def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, group=TRAIN_GROUP):
+def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, group=TRAIN_GROUP,
+                      alpha=False):
     """Kernel C on CUDA tensors -> {rgb, depth, mask, trans_end}, or raises;
-    ``group`` lanes a ray (32 or 8, see ``march_group``)."""
+    ``group`` lanes a ray (32 or 8, see ``march_group``); ``alpha``: the
+    stream holds alpha in place of sigma."""
     rgb, depth, mask, trans_end = cuda_lib.ops().segment_march_fwd(sigma, radiance, z, off, cnt, bool(add_inf_z), bkg,
-                                                                   bool(white_bkg), int(group))
+                                                                   bool(white_bkg), int(group), bool(alpha))
     if off.shape[0] > 0:
         segment_march.launches += 1
     return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
 
 
 def segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None,
-                      white_bkg=False):
+                      white_bkg=False, alpha=False):
     """Gradients (d_sigma (K,), d_radiance (K, 3)) of the compositing. A CPU
     tensor takes ``segment_march_bwd_reference``; a CUDA tensor launches
     kernel F or raises."""
     if z.is_cpu:
         return segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg,
-                                           white_bkg)
+                                           white_bkg, alpha)
     d_sigma, d_rgb = cuda_lib.ops().segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask,
-                                                      bool(add_inf_z), bkg, bool(white_bkg))
+                                                      bool(add_inf_z), bkg, bool(white_bkg), bool(alpha))
     if off.shape[0] > 0:
         segment_march_bwd.launches += 1
     return d_sigma, d_rgb
@@ -368,13 +380,13 @@ class _SegmentMarchFunction(torch.autograd.Function):
     card, their plain versions on the CPU. trans_end carries no gradient."""
 
     @staticmethod
-    def forward(ctx, sigma, radiance, z, off, cnt, bkg, add_inf_z, white_bkg, group):
+    def forward(ctx, sigma, radiance, z, off, cnt, bkg, add_inf_z, white_bkg, group, alpha=False):
         if z.is_cpu:
-            out = segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
+            out = segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, alpha)
         else:
-            out = segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group)
+            out = segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group, alpha)
         ctx.save_for_backward(sigma, radiance, z, off, cnt, bkg)
-        ctx.flags = (add_inf_z, white_bkg)
+        ctx.flags = (add_inf_z, white_bkg, alpha)
         ctx.mark_non_differentiable(out["trans_end"])
         return out["rgb"], out["depth"], out["mask"], out["trans_end"]
 
@@ -385,14 +397,14 @@ class _SegmentMarchFunction(torch.autograd.Function):
         g_rgb = torch.zeros((n_rays, 3), device=z.device) if g_rgb is None else g_rgb.contiguous()
         g_depth = torch.zeros((n_rays,), device=z.device) if g_depth is None else g_depth.contiguous()
         g_mask = torch.zeros((n_rays,), device=z.device) if g_mask is None else g_mask.contiguous()
-        add_inf_z, white_bkg = ctx.flags
+        add_inf_z, white_bkg, alpha = ctx.flags
         d_sigma, d_rgb = segment_march_bwd(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg,
-                                           white_bkg)
-        return d_sigma, d_rgb, None, None, None, None, None, None, None
+                                           white_bkg, alpha=alpha)
+        return d_sigma, d_rgb, None, None, None, None, None, None, None, None
 
 
 def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False, bkg_color=None, noise=None,
-                  group=TRAIN_GROUP):
+                  group=TRAIN_GROUP, alpha=False):
     """Alpha compositing over a COMPACTED sample stream.
 
     sigma (K,), radiance (K, 3), z (K,) hold the stream (first sum(cnt)
@@ -401,7 +413,8 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
     its in-stream sample count. ``bkg_color`` (3,) or (N_rays, 3) is
     composited with the end transmittance; else ``white_bkg`` fills
     1 - mask. ``noise`` (K,) is added to sigma first (the JAX ``noise``,
-    pre-drawn).
+    pre-drawn). With ``alpha`` the stream's ``sigma`` holds alpha (an SDF's
+    sections; kernels C and F in their alpha mode).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches kernel C
     on ``group`` lanes a ray (``march_group``), and kernel F in the
@@ -416,11 +429,11 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
         raise ValueError("segment_march: expected CPU or CUDA tensors, got {}".format(z.device))
     if torch.is_grad_enabled() and (sigma.requires_grad or radiance.requires_grad):
         rgb, depth, mask, trans_end = _SegmentMarchFunction.apply(sigma.contiguous(), radiance.contiguous(), z, off,
-                                                                  cnt, bkg, add_inf_z, white_bkg, group)
+                                                                  cnt, bkg, add_inf_z, white_bkg, group, alpha)
         return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
     if z.is_cpu:
-        return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg)
-    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group)
+        return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, alpha)
+    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group, alpha)
 
 
 segment_march.launches = 0

@@ -9,7 +9,10 @@ path's shapes or at any smaller size.
   training step's budget);
 - ``ladder_rays``: cameras 2.5-4 from the centre, each ray aimed at a point
   of the volume, a ``miss_frac`` share turned away from it, one in twenty
-  parallel to one axis's slabs.
+  parallel to one axis's slabs;
+- ``diagonal_rays``: rays along the volume's main diagonals from beyond a
+  corner, which keep every slot of the fix-step ladder valid in a full
+  grid (an SDF's sections then reach their clip at ``n_pts``).
 """
 
 import numpy as np
@@ -53,6 +56,20 @@ def ladder_rays(volume, n_rays, seed, miss_frac=0.1, device="cpu"):
     rays_o = torch.from_numpy(cam.astype(np.float32)).to(device)
     rays_d = torch.from_numpy(dirs.astype(np.float32)).to(device)
     return rays_o, rays_d
+
+
+def diagonal_rays(volume, n_rays, seed, device="cpu"):
+    """(rays_o, rays_d): (n_rays, 3) f32 rays along the eight main
+    diagonals in turn, each from 1.5 half-sides beyond its start corner,
+    the origin moved by up to 1e-4 across: the chord stays within
+    ~1e-4 of the diagonal, under a ladder step of diag / 1024."""
+    rng = np.random.default_rng(seed)
+    signs = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], dtype=np.float64)
+    sign = signs[np.arange(n_rays) % 8]
+    half = volume.xyz_len / 2.0
+    cam = -1.5 * sign * half + rng.uniform(-1e-4, 1e-4, size=(n_rays, 3))
+    dirs = sign / np.linalg.norm(sign, axis=1, keepdims=True)
+    return (torch.from_numpy(cam.astype(np.float32)).to(device), torch.from_numpy(dirs.astype(np.float32)).to(device))
 
 
 def ladder_rand(n_rays, n_pts, seed, device="cpu"):

@@ -2,9 +2,9 @@
 ``arcnerf_tpu/trainer/optimizer.py``: ``build_lr_schedule``,
 ``build_optimizer``).
 
-The optimizer is ``torch.optim.Adam`` with ``fused=True`` and
-``capturable=True``, its rate a one-value tensor on the parameters' device,
-so that a whole step, the rate included, can be captured in a CUDA graph;
+The optimizer is ``torch.optim.Adam`` (``AdamW`` under a weight decay)
+with ``fused=True`` and ``capturable=True``, its rate a one-value tensor on
+the parameters' device, so that a whole step, the rate included, can be captured in a CUDA graph;
 the same optimizer runs on the CPU. The schedule is a function of the
 number of updates already applied, t (0 for the first update), given as an
 f32 tensor on the device - the count optax reads before incrementing it -
@@ -46,17 +46,22 @@ def build_lr_schedule(optim_cfgs):
 
 
 def build_optimizer(optim_cfgs, params, device=None):
-    """cfgs.optim -> (Adam over ``params`` on ``device``, schedule). Adam
-    without weight decay or gradient clipping is what is ported; its rate is
-    a tensor on ``device`` (the CPU by default) that the caller sets from
-    ``schedule`` before each step."""
+    """cfgs.optim -> (Adam over ``params`` on ``device``, schedule): Adam,
+    or with optim.weight_decay > 0 AdamW, whose decay is decoupled from the
+    moments as ``optax.adamw`` decays (p <- p - lr (update + wd p); ArcNerf's
+    own ``Adam(weight_decay)`` adds wd p to the gradient instead). Gradient
+    clipping is not ported. The rate is a tensor on ``device`` (the CPU by
+    default) that the caller sets from ``schedule`` before each step."""
     otype = str(get_value_from_cfgs_field(optim_cfgs, "optim_type", "adam")).lower()
     if otype != "adam":
         raise NotImplementedError("optimizer {} is not ported yet (ROADMAP Queue 1, item 4)".format(otype))
-    for key in ("weight_decay", "clip_gradients"):
-        if float(get_value_from_cfgs_field(optim_cfgs, key, 0.0)) > 0:
-            raise NotImplementedError("optim.{} is not ported yet (ROADMAP Queue 1, item 4)".format(key))
+    if float(get_value_from_cfgs_field(optim_cfgs, "clip_gradients", 0.0)) > 0:
+        raise NotImplementedError("optim.clip_gradients is not ported yet (ROADMAP Queue 1, item 4)")
     eps = float(get_value_from_cfgs_field(optim_cfgs, "eps", 1e-8))
+    weight_decay = float(get_value_from_cfgs_field(optim_cfgs, "weight_decay", 0.0))
     schedule = build_lr_schedule(optim_cfgs)
     lr = schedule(torch.zeros((), device=device))
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=eps, fused=True, capturable=True), schedule
+    kwargs = dict(lr=lr, betas=(0.9, 0.999), eps=eps, fused=True, capturable=True)
+    if weight_decay > 0:
+        return torch.optim.AdamW(params, weight_decay=weight_decay, **kwargs), schedule
+    return torch.optim.Adam(params, **kwargs), schedule

@@ -25,8 +25,9 @@ device tensor, and an explicit occupancy state dict:
   host only at its update cadence; nothing else syncs per step;
 - while tracing is on (``utils.profiler``) a stride or an eager step is
   one ``train.stride`` span, the occupancy update ``train.occupancy``, and
-  the steps' valid samples past the point budget are counted
-  (``compact.dropped``) outside the captured step;
+  the steps' valid samples past the point budget (``compact.dropped``)
+  and an SDF's kept sections (``sdf.normal_pts``) are counted outside the
+  captured step;
 - validation renders through the serving path (``RenderEngine``), whose
   render tiers the trainer also hands on (``set_render_cap``,
   ``render_image_fast``, ``render_image_interactive``,
@@ -246,7 +247,9 @@ class ArcNerfTrainer:
         """Forward, loss, backward, Adam at the scheduled rate and the EMA on
         one batch: the device work of a step, with no host value in it
         (``StepGraph`` captures it). Returns its stats, device tensors."""
-        out = self.model(feed, inference_only=False, bound_state=self.bound_state, generator=self.generator)
+        # the epoch reaches the model as the device count of updates (NeuS's annealed slope)
+        out = self.model(dict(feed, cur_epoch=self._updates), inference_only=False, bound_state=self.bound_state,
+                         generator=self.generator)
         loss_dict = self.loss_factory(feed, out)
         self.optimizer.zero_grad(set_to_none=True)
         loss_dict["sum"].backward()
@@ -282,10 +285,19 @@ class ArcNerfTrainer:
             self._step += 1
             if "n_valid_pts" in stats and self.log_max_allowance:
                 self.pipeline.record_valid_pts(stats["n_valid_pts"], n_rays)
-                profiler.count_compact(stats["n_valid_pts"], 1 << self.log_max_allowance)
+                self._count_steps(stats["n_valid_pts"])
             self._count_fused_sampling(1)
         stats["n_rays"] = n_rays
         return stats
+
+    def _count_steps(self, n_valid):
+        """The steps' compaction counters (``n_valid``: their valid-sample
+        counts) and, for an SDF model, ``sdf.normal_pts``: the sections
+        each step keeps, whose normals it takes."""
+        budget = 1 << self.log_max_allowance
+        profiler.count_compact(n_valid, budget)
+        if profiler.active() and self.model.fg_model.sigma_reverse():
+            profiler.count("sdf.normal_pts", n_valid.clamp_max(budget).sum())
 
     def _count_fused_sampling(self, steps):
         """Count ``steps`` training steps under ``sample.fused`` where the
@@ -336,7 +348,7 @@ class ArcNerfTrainer:
             if "n_valid_pts" in seq and self.log_max_allowance:
                 for count in seq["n_valid_pts"].unbind():
                     self.pipeline.record_valid_pts(count, n_rays)
-                profiler.count_compact(seq["n_valid_pts"], 1 << self.log_max_allowance)
+                self._count_steps(seq["n_valid_pts"])
             self._count_fused_sampling(stride)
         stats = {k: v[-1] for k, v in seq.items()}
         stats["n_rays"] = n_rays

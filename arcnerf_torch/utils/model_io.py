@@ -83,7 +83,7 @@ def _flatten(tree, prefix=()):
 
 def _port_name(path):
     names = [_JAX_SCOPES.get(p, p) for p in path]
-    if names[-1] == "kernel":
+    if names[-1] == "kernel" or names[-1].endswith("/kernel/scale"):  # a weight norm's scale is its scope (wn_i)
         names = names[:-1]
     return ".".join(names)
 
@@ -95,7 +95,8 @@ def state_from_jax(params_np, bound_state_np):
     Dense kernels are stored ``(in, out)`` in both packages, and the hash
     table ``(L, T, F)``, so values carry over unchanged; only the names
     change (``HashGridEmbedder_0`` -> ``encoder``, ``_FusedMLP_0`` -> ``mlp``,
-    a ``kernel`` leaf folds into its layer)."""
+    a ``kernel`` leaf folds into its layer, and a weight norm's
+    ``wn_i/fc_i/kernel/scale`` into ``wn_i``)."""
     state = {}
     for path, value in _flatten(params_np):
         state[_port_name(path)] = torch.from_numpy(np.array(value, dtype=np.float32))

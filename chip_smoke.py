@@ -85,7 +85,18 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    points with the trained table, and kernels C and F on that step's
    compositing stream (its segment-length distribution printed), each held
    against its plain version and timed from a CUDA graph beside its bound.
-   The graph phase: (a) the same 400 steps again with
+   The NeuS-NGP phase: kernels K (the hash grid's input gradient) and L
+   (its backward) at 2^18 ray-ordered points against their plain
+   versions; kernel S's sections mode at 2048 rays x 1024 ladder slots
+   with a 2^18 budget (the scene's grid, half the voxels occupied so the
+   budget cuts the stream) and 64 diagonal rays of a full grid (every
+   slot valid, the sections clipped at 1024), bit for bit with its plain
+   version; kernels C and F in their alpha mode on each stream it wrote;
+   then 48 eager steps of configs/expr/synthetic_neus_ngp.yaml (each
+   kernel's launches a step, the loss finite).
+   The graph phase, last (its draws do not always repeat on the card, so
+   a failure there is printed after the kernel table and still exits
+   non-zero): (a) the same 400 steps again with
    ``--progress.scan_steps 16`` (strides of replays of the step captured
    as a CUDA graph, one a ray bucket): the loss is finite and falls, the
    bitfield changes, the held-out PSNR is >= 20 dB and within 0.5 dB of
@@ -105,7 +116,7 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    also at quad's; A's entry also holds its save_pre build, B's and E's
    their numbers on the training stream, C's and F's on the captured
    compositing stream (F's with its segment lengths), C's also on the
-   serving chunk; every entry its wrapper's host_us and ctypes_us), the
+   serving chunk, S's, C's and F's also on the NeuS sections; every entry its wrapper's host_us and ctypes_us), the
    card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -655,11 +666,12 @@ def capture_training_streams(trainer):
                          aabb_len=aabb_len, variant=variant))
         return inner(xyz, g, table_shape, res, aabb_min, aabb_len, variant, res_dev)
 
-    def wrapper_f(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None, white_bkg=False):
+    def wrapper_f(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z=False, bkg=None, white_bkg=False,
+                  **mode):  # mode: the alpha mode's flag, where the tree has one
         seen_f.append(dict(sigma=sigma.clone(), rgb=radiance.clone(), z=z.clone(), off=off.clone(), cnt=cnt.clone(),
                            g_rgb=g_rgb.clone(), g_depth=g_depth.clone(), g_mask=g_mask.clone(), add_inf_z=add_inf_z,
                            bkg=None if bkg is None else bkg.clone(), white_bkg=white_bkg))
-        return inner_f(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg, white_bkg)
+        return inner_f(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_mask, add_inf_z, bkg, white_bkg, **mode)
 
     # each wrapper counts its launch on the module's function: the wrapped
     # one, for this step
@@ -1243,9 +1255,14 @@ def kernel_counters():
     from arcnerf_torch.ops.gather_scatter import build_update_rows, lane_gather, row_gather, scatter_add_rows
     from arcnerf_torch.render.ray_helper import segment_march, segment_march_bwd
 
-    return {"A": fused_mlp, "B": hash_encode, "C": segment_march, "D": fused_mlp_bwd, "E": hash_encode_bwd,
-            "F": segment_march_bwd, "G": row_gather, "H": lane_gather, "I": scatter_add_rows,
-            "J": build_update_rows, "S": sample_count}
+    counters = {"A": fused_mlp, "B": hash_encode, "C": segment_march, "D": fused_mlp_bwd, "E": hash_encode_bwd,
+                "F": segment_march_bwd, "G": row_gather, "H": lane_gather, "I": scatter_add_rows,
+                "J": build_update_rows, "S": sample_count}
+    from arcnerf_torch.models.base_modules import encoding
+
+    if hasattr(encoding, "hash_encode_dx"):  # kernels K and L (a tree from before them has none)
+        counters.update(K=encoding.hash_encode_dx, L=encoding.hash_dx_bwd)
+    return counters
 
 
 def reset_launches():
@@ -1834,6 +1851,182 @@ def graph_speed(graph_trainer, eager):
     return {"eager_ms": eager_ms, "graph_ms": graph_ms, "n_rays": n_rays, "adam_bound_ms": adam_bound}
 
 
+# ------------------------------------------------ NeuS-NGP: K, L, C/F alpha
+
+NEUS_STEPS = 48  # eager steps of the NeuS recipe (occupancy updates at 16, 32 during the warm-up)
+
+
+def hash_dx_points(dev, gen, n=B_POINTS):
+    """A ray-ordered stream of ``n`` points inside the volume, as the
+    training step hands the hash grid (consecutive sections of a ray
+    2 sqrt(3) / 1024 apart)."""
+    from arcnerf_torch.tools.hash_streams import ray_stream
+
+    return torch.as_tensor(ray_stream(n, 11, step=2 * 3 ** 0.5 / 1024), device=dev)
+
+
+def compare_hash_dx(dev, gen):
+    """Kernel K (the encoding's input gradient) and kernel L (its backward)
+    at the main path's shapes (2^18 points, L=16, T=2^19, F=2, quad, bf16
+    reads) against their plain versions."""
+    from arcnerf_torch.models.base_modules.encoding import (HashGridEmbedder, hash_dx_bwd, hash_dx_bwd_reference,
+                                                           hash_encode_dx, hash_encode_dx_reference)
+
+    enc = HashGridEmbedder(n_levels=16, n_feat_per_entry=2, hashmap_size=19, side=2.0, include_input=False,
+                           dtype="bfloat16")
+    table = (torch.rand((16, 1 << 19, 2), generator=gen, device=dev) * 2 - 1).contiguous()
+    xyz = hash_dx_points(dev, gen)
+    g = torch.randn((B_POINTS, 32), generator=gen, device=dev)
+    g_dx = torch.randn((B_POINTS, 3), generator=gen, device=dev)
+    args = (enc.resolutions, enc.aabb_min, enc.aabb_len, enc.variant, True)
+    res_dev = torch.as_tensor(enc.resolutions, dtype=torch.int32, device=dev)
+    touched = sum(min(1 << 19, (r + 1) ** 3, 8 * B_POINTS) for r in enc.resolutions)
+    rows, stats = [], {}
+    dx, ref = hash_encode_dx(xyz, table, g, *args), hash_encode_dx_reference(xyz, table, g, *args)
+    err = check_scaled("hash_encode_dx", dx, ref, 1e-4)
+    k_bound = bound(B_POINTS * (12 + 32 * 4 + 12) + touched * 2 * 4, B_POINTS * 16 * 8 * (2 * 2 + 6), F32_FLOP_S)
+    entry = {"max_abs_err": err, "ms": time_ms(lambda: hash_encode_dx(xyz, table, g, *args)),
+             "plain_ms": time_ms(lambda: hash_encode_dx_reference(xyz, table, g, *args), 3),
+             "graph_ms": graph_ms(lambda: hash_encode_dx(xyz, table, g, *args, res_dev=res_dev))}
+    suffix = add_bound(entry, [k_bound])
+    rows.append("K hash_encode_dx (2^18 ray-ordered pts, L=16, T=2^19, F=2, quad): max abs err {:.3e} (tol 1e-4 x "
+                "max|ref|), kernel {:.4f} ms (CUDA graph {:.4f} ms), plain {:.4f} ms, {}".format(
+                    err, entry["ms"], entry["graph_ms"], entry["plain_ms"], suffix))
+    stats["K"] = entry
+    (d_t, d_g), (r_t, r_g) = hash_dx_bwd(xyz, table, g, g_dx, *args), hash_dx_bwd_reference(xyz, table, g, g_dx, *args)
+    err = max(check_scaled("hash_dx_bwd d_table", d_t, r_t, 1e-5), check_scaled("hash_dx_bwd d_g", d_g, r_g, 1e-5))
+    l_bound = bound(B_POINTS * (12 + 2 * 32 * 4 + 12) + touched * 2 * 4 + 16 * (1 << 19) * 2 * 4,
+                    B_POINTS * 16 * 8 * (6 + 4 * 2), F32_FLOP_S)
+    entry = {"max_abs_err": err, "ms": time_ms(lambda: hash_dx_bwd(xyz, table, g, g_dx, *args)),
+             "plain_ms": time_ms(lambda: hash_dx_bwd_reference(xyz, table, g, g_dx, *args), 3),
+             "graph_ms": graph_ms(lambda: hash_dx_bwd(xyz, table, g, g_dx, *args, res_dev=res_dev))}
+    suffix = add_bound(entry, [l_bound])
+    rows.append("L hash_dx_bwd (same shapes; the table gradient zeroed and scattered, d_g gathered): max abs err "
+                "{:.3e} (tol 1e-5 x max|ref|), kernel {:.4f} ms (CUDA graph {:.4f} ms), plain {:.4f} ms, {}".format(
+                    err, entry["ms"], entry["graph_ms"], entry["plain_ms"], suffix))
+    stats["L"] = entry
+    return rows, stats
+
+
+# the NeuS cell's sampler: its rays a step, ladder slots and budget; the
+# cases: the benchmark scene's grid (~44 sections a ray), half the voxels
+# occupied (the budget cuts the stream, segments of ~500), and rays along
+# the diagonals of a full grid (every slot valid: sections clip at 1024)
+NEUS_SLOTS, NEUS_BUDGET = 1024, 1 << 18
+NEUS_S_CASES = (("scene", 2048, "scene"), ("half", 2048, "half"), ("diagonal", 64, "full"))
+NEUS_ALPHA_MAX = 0.05  # alphas under 0.05 keep a ray's transmittance alive across its groups
+
+
+def compare_sections(dev, gen):
+    """Kernel S's sections mode on NEUS_S_CASES against its plain version,
+    bit for bit (the lengths included), timed from a CUDA graph; then
+    kernels C and F in their alpha mode on each stream it wrote (alpha
+    uniform under NEUS_ALPHA_MAX, so the carry crosses every group of a
+    long segment) against their plain versions."""
+    from arcnerf_torch.models.base_modules import sample_compact as sampler
+    from arcnerf_torch.render.ray_helper import (segment_march_bwd, segment_march_bwd_reference,
+                                                 segment_march_fwd, segment_march_reference)
+    from arcnerf_torch.tools.sample_streams import (diagonal_rays, ladder_bitfield, ladder_rand, ladder_rays,
+                                                    ladder_volume)
+
+    vol = ladder_volume()
+    rows, stats = [], {"S": {}, "C": {}, "F": {}}
+    for label, n_rays, kind in NEUS_S_CASES:
+        bitfield = ladder_bitfield(kind, vol, SEED, device=dev)
+        o, d = (diagonal_rays if kind == "full" else ladder_rays)(vol, n_rays, SEED, device=dev)
+        rand = ladder_rand(n_rays, NEUS_SLOTS, SEED + 1, device=dev)
+        args = (vol, bitfield, o, d, NEUS_SLOTS, NEUS_BUDGET, None, rand)
+
+        def run():
+            return sampler.sample_compact(*args, sections=True)
+
+        def plain():
+            return sampler.sample_compact(*args, count=sampler.sample_count_reference, sections=True)
+
+        got, want = run(), plain()
+        for k in S_KEYS + ("len",):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError("sampler sections {}: {} is not bit-identical to the plain version".format(
+                    label, k))
+        cnt = got["cnt"]
+        if kind == "full" and int(cnt.max()) != NEUS_SLOTS:
+            raise AssertionError("sampler sections diagonal: no ray reached the clip at {}".format(NEUS_SLOTS))
+        c = {"max_abs_err": 0.0, "ms": graph_ms(run), "plain_ms": time_ms(plain, 3), "n_valid": int(got["n_valid"]),
+             "kept": int(cnt.sum()), "max_cnt": int(cnt.max())}
+        suffix = add_bound(c, [bound(41 * n_rays + 4 * n_rays * NEUS_SLOTS + 32 * NEUS_BUDGET, 0, F32_FLOP_S)])
+        rows.append("S sections {} ({} rays x {} slots, jitter, budget {}; {} sections, {} kept, a ray at most {}): "
+                    "bit-identical, kernel {:.4f} ms (CUDA graph), plain {:.4f} ms, {}".format(
+                        label, n_rays, NEUS_SLOTS, NEUS_BUDGET, c["n_valid"], c["kept"], c["max_cnt"], c["ms"],
+                        c["plain_ms"], suffix))
+        stats["S"][label] = c
+
+        z, off = got["z"], got["off"]
+        alpha = torch.rand(z.shape, generator=gen, device=dev) * NEUS_ALPHA_MAX
+        rgb = torch.rand((z.shape[0], 3), generator=gen, device=dev)
+        bkg = torch.rand((n_rays, 3), generator=gen, device=dev)
+        grads = [torch.randn((n_rays, 3), generator=gen, device=dev)] + [
+            torch.randn((n_rays,), generator=gen, device=dev) for _ in range(2)]
+        fwd = (alpha, rgb, z, off, cnt, False, bkg, False)
+        out, ref = segment_march_fwd(*fwd, alpha=True), segment_march_reference(*fwd, alpha=True)
+        err_c = max(max_err(out[k], ref[k]) for k in ("rgb", "depth", "mask", "trans_end"))
+        if err_c > C_TOL:
+            raise AssertionError("segment_march alpha mode {}: max abs err {} over {}".format(label, err_c, C_TOL))
+        bwd = (alpha, rgb, z, off, cnt, *grads, False, bkg, False)
+        (d_a, d_rgb), (r_a, r_rgb) = segment_march_bwd(*bwd, alpha=True), segment_march_bwd_reference(*bwd, alpha=True)
+        err_f = max(check_scaled("segment_march_bwd alpha {} d_alpha".format(label), d_a, r_a, F_TOL),
+                    check_scaled("segment_march_bwd alpha {} d_rgb".format(label), d_rgb, r_rgb, F_TOL))
+        cc = {"max_abs_err": err_c, "ms": graph_ms(lambda: segment_march_fwd(*fwd, alpha=True)),
+              "plain_ms": time_ms(lambda: segment_march_reference(*fwd, alpha=True), 3)}
+        ff = {"max_abs_err": err_f, "ms": graph_ms(lambda: segment_march_bwd(*bwd, alpha=True)),
+              "plain_ms": time_ms(lambda: segment_march_bwd_reference(*bwd, alpha=True), 3)}
+        k_total = z.shape[0]
+        rows.append("C alpha mode on the {} sections ({} rays, {} rows): max abs err {:.3e} (tol {}), kernel {:.4f} ms "
+                    "(CUDA graph), plain {:.4f} ms, {}".format(label, n_rays, k_total, err_c, C_TOL, cc["ms"],
+                                                              cc["plain_ms"], add_bound(cc, [c_bound(cnt, n_rays)])))
+        rows.append("F alpha mode on the {} sections: max abs err {:.3e} (tol {} x max|ref|), kernel {:.4f} ms (CUDA "
+                    "graph), plain {:.4f} ms, {}".format(label, err_f, F_TOL, ff["ms"], ff["plain_ms"],
+                                                         add_bound(ff, [f_bound(cnt, n_rays, k_total)])))
+        stats["C"][label], stats["F"][label] = cc, ff
+        del got, want, out, ref
+    return rows, stats
+
+
+def neus_train():
+    """The NeuS-NGP recipe (configs/expr/synthetic_neus_ngp.yaml) for
+    NEUS_STEPS eager steps through ``arcnerf_torch.train``, then a render
+    of a held-out view: each kernel's launches a step (the warm-up's
+    occupancy updates at steps 16 and 32 add B and K launches over every
+    voxel centre), the loss finite."""
+    from arcnerf_torch import train as train_entry
+
+    expr = os.path.join(WORK_DIR, "neus")
+    argv = ["--configs", os.path.join(ROOT, "configs/expr/synthetic_neus_ngp.yaml"), "--device", "cuda:0",
+            "--dir.expr_dir", expr, "--progress.epoch", str(NEUS_STEPS), "--progress.epoch_loss", "16",
+            "--progress.epoch_val", str(NEUS_STEPS), "--progress.epoch_save_checkpoint", "-1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_entry.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("ABCDEFKLS")
+    losses = torch.stack(trainer.loss_history).float().cpu()
+    print("NeuS-NGP {} eager steps: wall {:.1f} s, peak {:.2f} GiB, bucket {} rays; launches {}, per step {}; loss "
+          "first {:.4f} last {:.4f}, all finite {}".format(
+              NEUS_STEPS, wall, torch.cuda.max_memory_allocated() / 2**30, trainer.pipeline.n_rays, launches,
+              {k: round(v / NEUS_STEPS, 3) for k, v in launches.items()}, float(losses[0]), float(losses[-1]),
+              bool(torch.isfinite(losses).all())))
+    if not torch.isfinite(losses).all():
+        raise AssertionError("NeuS training: a loss is not finite")
+    for key in "BCEFKLS":
+        if launches[key] < NEUS_STEPS:
+            raise AssertionError("NeuS training: kernel {} launched {} times in {} steps".format(
+                key, launches[key], NEUS_STEPS))
+    shutil.rmtree(expr)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1915,8 +2108,29 @@ def main():
     stats["F"]["captured_stream"]["lengths"] = captured["lengths"]
     del e_stream
     torch.cuda.empty_cache()
-    graph = train_graph(eager_psnr)
-    print("graph phase: {}".format(json.dumps(graph, sort_keys=True)))
+
+    # ------------------------------------------------------------ NeuS-NGP
+    rows, neus_stats = compare_hash_dx(dev, gen)
+    section_rows, section_stats = compare_sections(dev, gen)
+    for row in rows + section_rows:
+        print(row)
+    stats.update(neus_stats)
+    stats["S"]["sections"] = section_stats["S"]
+    stats["C"]["alpha_mode"], stats["F"]["alpha_mode"] = section_stats["C"], section_stats["F"]
+    neus_launches = neus_train()
+    launches.update(K=neus_launches["K"], L=neus_launches["L"])
+    torch.cuda.empty_cache()
+
+    # the graph phase last: its draws do not always repeat on the card
+    # (ROADMAP Queue 3), so a failure there is reported after the kernels'
+    # line and still fails the run
+    graph_failure = None
+    try:
+        graph = train_graph(eager_psnr)
+        print("graph phase: {}".format(json.dumps(graph, sort_keys=True)))
+    except AssertionError as err:
+        graph_failure = err
+        print("graph phase FAILED: {}".format(err))
 
     meta = {
         "A": ("fused_mlp_fwd", "arcnerf_torch/csrc/fused_mlp.cu", "arcnerf_tpu/ops/fused_mlp.py:125"),
@@ -1938,11 +2152,17 @@ def main():
         "S": ("sample_compact", "arcnerf_torch/csrc/sample_compact.cu",
               "none (XLA: models/base_modules/obj_bound.py:60, geometry/volume.py:288,307, "
               "render/ray_helper.py:162, models/fg_model.py:227)"),
+        "K": ("hash_encode_dx", "arcnerf_torch/csrc/hash_dx.cu",
+              "none (jax.grad through the unfused element path, models/base_modules/encoding.py)"),
+        "L": ("hash_dx_bwd", "arcnerf_torch/csrc/hash_dx.cu",
+              "none (jax.grad of jax.grad through the unfused element path)"),
     }
     kernels = [dict(name=meta[k][0], route="cuda", source=meta[k][1], replaces=meta[k][2], launches=launches[k],
-                    **stats[k]) for k in "ABCDEFGHIJS"]
+                    **stats[k]) for k in "ABCDEFGHIJSKL"]
     print(json.dumps({"kernels": kernels}))
     print(card)
+    if graph_failure is not None:
+        raise SystemExit("chip_smoke: graph phase failed: {}".format(graph_failure))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,4 +1,4 @@
-"""arcnerf_torch's CUDA kernels (A-J, the fused sampler) vs their plain
+"""arcnerf_torch's CUDA kernels (A-L, the fused sampler) vs their plain
 PyTorch versions on the card, the autograd Functions' dispatch to them, and
 the gather/scatter wrappers' launch counters.
 
@@ -26,7 +26,7 @@ from arcnerf_torch.render.ray_helper import (segment_march, segment_march_bwd, s
                                              segment_march_reference)
 from arcnerf_torch.tools.hash_streams import one_cell_stream, pad_stream, ray_stream
 from arcnerf_torch.tools.march_streams import long_tail_lengths, ray_gradients, segment_stream
-from arcnerf_torch.tools.sample_streams import ladder_bitfield, ladder_rand, ladder_rays, ladder_volume
+from arcnerf_torch.tools.sample_streams import diagonal_rays, ladder_bitfield, ladder_rand, ladder_rays, ladder_volume
 from arcnerf_torch.tools.scatter_streams import partition_constants
 
 pytestmark = pytest.mark.cuda
@@ -1108,6 +1108,9 @@ SAMPLER_CASES = {
     "full_covered": (1024, "full", 512, True, None, 1024 * 512, 0.0),
     "full_covered_capped": (1024, "full", 512, False, 16, 1024 * 512, 0.0),
     "ragged_ladder": (3000, "half", 100, True, None, 1 << 16, 0.2),
+    # the NeuS cell's sampler: 2048 rays on its 1024-slot ladder, 2^18 budget
+    "neus_step": (2048, "scene", 1024, True, None, 1 << 18, 0.1),
+    "neus_step_half": (2048, "half", 1024, True, None, 1 << 18, 0.1),
 }
 SAMPLER_KEYS = ("z", "pts", "dirs", "off", "cnt", "n_valid", "ray_has")
 
@@ -1191,3 +1194,204 @@ def test_graph_strides_launch_the_fused_sampler(dev, tmp_path):
     assert (sampler.sample_count.launches, sampler.sample_write.launches) == (launches[0] + 2, launches[1] + 2)
     step = trainer.step_graphs[(256, None)]
     assert step.graph is not None and all(int(c) > 0 for c in step.ring["n_valid_pts"])
+
+
+# ------------------------------------------------ NeuS-NGP: K, L, the modes
+
+HASH_DX_RES = [15, 22, 33, 48, 71, 104, 153, 224, 329, 482, 706, 1034, 1515, 2219, 3250, 4761]
+
+
+def _hash_dx_inputs(dev, n_pts, n_feat, seed, log2_t=19):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = (torch.rand((16, 1 << log2_t, n_feat), generator=gen, device=dev) * 2 - 1) * 0.5
+    xyz = torch.as_tensor(ray_stream(n_pts, seed), device=dev)
+    g = torch.randn((n_pts, 16 * n_feat), generator=gen, device=dev)
+    return xyz, table, g
+
+
+@pytest.mark.parametrize("variant", ["quad", "ngp"])
+@pytest.mark.parametrize("n_pts,n_feat", [(1, 2), (33, 2), (5000, 2), (1 << 18, 2), (777, 4), (300, 1)])
+def test_hash_dx_kernel_matches_plain(dev, variant, n_pts, n_feat):
+    # kernel K against hash_encode_dx_reference: the same terms, summed over
+    # the levels in another order (1e-4 of the largest value)
+    if variant == "quad" and n_feat != 2:
+        variant = "pair"
+    xyz, table, g = _hash_dx_inputs(dev, n_pts, n_feat, n_pts)
+    args = (HASH_DX_RES, (-1.0, -1.0, -1.0), (2.0, 2.0, 2.0), variant)
+    launches = encoding.hash_encode_dx.launches
+    got = encoding.hash_encode_dx(xyz, table, g, *args)
+    assert encoding.hash_encode_dx.launches == launches + 1
+    want = encoding.hash_encode_dx_reference(xyz, table, g, *args)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("variant", ["quad", "ngp"])
+@pytest.mark.parametrize("n_pts,n_feat", [(1, 2), (33, 2), (5000, 2), (1 << 18, 2), (777, 4)])
+def test_hash_dx_bwd_kernel_matches_plain(dev, variant, n_pts, n_feat):
+    # kernel L against hash_dx_bwd_reference: d_g exactly the plain terms in
+    # corner order (1e-5 of the largest); the table's float atomics land in
+    # another order (1e-5 of the largest entry)
+    if variant == "quad" and n_feat != 2:
+        variant = "pair"
+    xyz, table, g = _hash_dx_inputs(dev, n_pts, n_feat, n_pts + 1)
+    g_dx = torch.randn((n_pts, 3), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    args = (HASH_DX_RES, (-1.0, -1.0, -1.0), (2.0, 2.0, 2.0), variant)
+    launches = encoding.hash_dx_bwd.launches
+    d_table, d_g = encoding.hash_dx_bwd(xyz, table, g, g_dx, *args)
+    assert encoding.hash_dx_bwd.launches == launches + 1
+    w_table, w_g = encoding.hash_dx_bwd_reference(xyz, table, g, g_dx, *args)
+    torch.testing.assert_close(d_g, w_g, rtol=0, atol=1e-5 * float(w_g.abs().max()))
+    torch.testing.assert_close(d_table, w_table, rtol=0, atol=1e-5 * float(w_table.abs().max()))
+
+
+def test_hash_grid_normal_and_its_backward_launch_k_and_l(dev):
+    # an SDF's normal through the encoding on the card: autograd.grad with
+    # create_graph reaches kernel K, the eikonal-style loss's backward
+    # kernel L for the normal's terms and kernel E for the encoding's; the
+    # gradients match the CPU's plain versions (1e-4 relative: atomics and
+    # level order)
+    xyz, table, _ = _hash_dx_inputs(dev, 4096, 2, 11, log2_t=14)
+    w = torch.randn((32, 1), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        t = table.to(device).clone().requires_grad_(True)
+        ww = w.to(device).clone().requires_grad_(True)
+        x = xyz.to(device).clone().requires_grad_(True)
+        counts = (encoding.hash_encode_dx.launches, encoding.hash_dx_bwd.launches, encoding.hash_encode_bwd.launches)
+        with encoding.input_grad():
+            enc = encoding.hash_encode(x, t, HASH_DX_RES, (-1.0, -1.0, -1.0), (2.0, 2.0, 2.0), "quad")
+            sdf = torch.tanh(enc @ ww)
+            (normal,) = torch.autograd.grad(sdf, x, torch.ones_like(sdf), create_graph=True)
+        loss = ((normal.norm(dim=-1) - 1) ** 2).mean() + sdf.mean()
+        loss.backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (encoding.hash_encode_dx.launches, encoding.hash_dx_bwd.launches,
+                    encoding.hash_encode_bwd.launches) == (counts[0] + 1, counts[1] + 1, counts[2] + 1)
+        assert x.grad is None
+        grads[device.type] = (t.grad.cpu(), ww.grad.cpu(), normal.detach().cpu())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("group", [32, 8])
+def test_segment_march_alpha_mode_matches_plain(dev, group):
+    # kernels C and F in the alpha mode against the plain versions: the
+    # tree order of the scans (2e-5, as the sigma mode's tests allow)
+    lengths = long_tail_lengths(2000, 3, max_len=64)
+    sigma, rgb, z, off, cnt = segment_stream(lengths, int(lengths.sum()) - 100, 3)
+    alpha = torch.as_tensor(np.random.default_rng(4).random(sigma.shape[0]).astype(np.float32))
+    g_rgb, g_depth, g_mask, bkg = ray_gradients(len(lengths), 5)
+    cpu = [alpha, torch.as_tensor(rgb), torch.as_tensor(z), torch.as_tensor(off), torch.as_tensor(cnt)]
+    card = [t.to(dev) for t in cpu]
+    bkg_c = torch.as_tensor(bkg)
+    launches = (segment_march.launches, segment_march_bwd.launches)
+    out = ray_helper.segment_march_fwd(*card, False, bkg_c.to(dev), False, group, alpha=True)
+    want = segment_march_reference(*cpu, False, bkg_c, False, alpha=True)
+    for k in ("rgb", "depth", "mask", "trans_end"):
+        torch.testing.assert_close(out[k].cpu(), want[k], rtol=2e-5, atol=2e-5)
+    grads = [torch.as_tensor(g) for g in (g_rgb, g_depth, g_mask)]
+    d_a, d_rgb = segment_march_bwd(*card, *[g.to(dev) for g in grads], False, bkg_c.to(dev), False, alpha=True)
+    w_a, w_rgb = segment_march_bwd_reference(*cpu, *grads, False, bkg_c, False, alpha=True)
+    assert (segment_march.launches, segment_march_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    torch.testing.assert_close(d_a.cpu(), w_a, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(d_rgb.cpu(), w_rgb, rtol=2e-5, atol=2e-5)
+
+
+SECTION_CASES = ("train_step", "train_step_half", "serve_chunk", "all_miss", "full_covered", "ragged_ladder",
+                 "neus_step", "neus_step_half")
+
+
+@pytest.mark.parametrize("name", SECTION_CASES)
+def test_sample_compact_sections_kernel_matches_plain(dev, name):
+    # the sections mode, bit for bit with its plain version (sdf_sections
+    # then the gathers), the lengths included
+    args = _sampler_inputs(name, dev)
+    got = sampler.sample_compact(*args, sections=True)
+    want = sampler.sample_compact(*args, count=sampler.sample_count_reference, sections=True)
+    _sampler_equal(got, want)
+    assert torch.equal(got["len"], want["len"])
+    if int(want["n_valid"]) > 0:
+        assert int(want["cnt"].sum()) > 0
+    if name == "neus_step_half":
+        assert int(want["n_valid"]) > args[5]  # the budget drops sections
+
+
+def test_sample_compact_sections_clip_at_the_ladder(dev):
+    # rays along the diagonals of a full grid keep all 1024 slots valid, so
+    # their c + 1 sections clip at n_pts = 1024: bit for bit with the plain
+    # version, every ray at the clip
+    vol = ladder_volume()
+    rays_o, rays_d = diagonal_rays(vol, 64, 3, device=dev)
+    args = (vol, ladder_bitfield("full", vol, 0, device=dev), rays_o, rays_d, 1024, 64 * 1024, None,
+            ladder_rand(64, 1024, 4, device=dev))
+    got = sampler.sample_compact(*args, sections=True)
+    want = sampler.sample_compact(*args, count=sampler.sample_count_reference, sections=True)
+    _sampler_equal(got, want)
+    assert torch.equal(got["len"], want["len"])
+    assert bool((got["cnt"] == 1024).all())
+
+
+@pytest.mark.parametrize("name", ["neus_step", "neus_step_half"])
+def test_march_alpha_mode_on_the_sections_stream(dev, name):
+    # kernels C and F in the alpha mode on the sections the sampler writes
+    # for the NeuS cell (segments of up to ~600 sections, so the carry
+    # crosses many groups), alphas under 0.05 so every group still carries
+    # light: within 2e-5 of the plain versions (f32 sums in another order)
+    out = sampler.sample_compact(*_sampler_inputs(name, dev), sections=True)
+    z, off, cnt = out["z"], out["off"], out["cnt"]
+    assert int(cnt.max()) > 8 * ray_helper.TRAIN_GROUP
+    rng = np.random.default_rng(7)
+    alpha = torch.as_tensor(rng.random(z.shape[0], dtype=np.float32) * 0.05, device=dev)
+    rgb = torch.as_tensor(rng.random((z.shape[0], 3), dtype=np.float32), device=dev)
+    g_rgb, g_depth, g_mask, bkg = (torch.as_tensor(g, device=dev) for g in ray_gradients(off.shape[0], 8))
+    got = ray_helper.segment_march_fwd(alpha, rgb, z, off, cnt, False, bkg, False, alpha=True)
+    want = segment_march_reference(alpha, rgb, z, off, cnt, False, bkg, False, alpha=True)
+    for k in ("rgb", "depth", "mask", "trans_end"):
+        torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-5)
+    args = (alpha, rgb, z, off, cnt, g_rgb, g_depth, g_mask, False, bkg, False)
+    for a, b in zip(segment_march_bwd(*args, alpha=True), segment_march_bwd_reference(*args, alpha=True)):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+
+
+NEUS_ARGV = ["--model.geometry.encoder.hashmap_size", "12", "--model.geometry.encoder.n_levels", "4",
+             "--model.obj_bound.volume.n_grid", "16", "--model.rays.n_sample", "64",
+             "--model.obj_bound.log_max_allowance", "13", "--model.obj_bound.epoch_optim_warmup", "4",
+             "--dataset.train.n_imgs", "2", "--dataset.train.wh", "[16,16]", "--dataset.val.n_imgs", "1",
+             "--dataset.val.wh", "[16,16]", "--n_rays", "256", "--device", "cuda:0"]
+
+
+def _neus_trainer(tmp_path, name, scan_steps):
+    import os
+
+    from arcnerf_torch.trainer import ArcNerfTrainer
+    from arcnerf_torch.utils.cfgs import load_configs, update_configs_by_dotlist
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfgs = update_configs_by_dotlist(load_configs(os.path.join(root, "configs/expr/synthetic_neus_ngp.yaml")),
+                                     NEUS_ARGV + ["--dir.expr_dir", str(tmp_path / name), "--progress.scan_steps",
+                                                  str(scan_steps)])
+    return ArcNerfTrainer(cfgs)
+
+
+def test_neus_graph_strides_follow_the_eager_steps(dev, tmp_path):
+    # NeuS-NGP's whole step, double backward, AdamW and EMA included, as a
+    # CUDA graph per bucket against eager steps: the same draws and section
+    # counts, losses within the atomics' order (GRAPH_LOSS_TOL), the
+    # kernels K and L launched at the warm-up step and the capture only
+    eager, graph = _neus_trainer(tmp_path, "eager", 1), _neus_trainer(tmp_path, "graph", 4)
+    counts = [int(eager.train_steps(e, 1)["n_valid_pts"]) for e in range(8)]
+    launches = (encoding.hash_encode_dx.launches, encoding.hash_dx_bwd.launches)
+    graph_counts = []
+    for e in range(0, 8, 4):
+        graph.train_steps(e, 4)
+        graph_counts += [int(c) for c in graph.step_graphs[(256, None)].ring["n_valid_pts"]]
+    torch.cuda.synchronize()
+    assert (encoding.hash_encode_dx.launches, encoding.hash_dx_bwd.launches) == (launches[0] + 2, launches[1] + 2)
+    assert graph_counts == counts and all(c > 0 for c in counts)
+    losses_e, losses_g = torch.stack(eager.loss_history).cpu(), torch.stack(graph.loss_history).cpu()
+    torch.testing.assert_close(losses_g, losses_e, rtol=GRAPH_LOSS_TOL, atol=0)
+    shadow_e, shadow_g = eager.eval_params(), graph.eval_params()
+    for name, v in shadow_e.items():
+        rel = float((shadow_g[name] - v).norm() / v.norm().clamp_min(1e-12))
+        assert rel < GRAPH_PARAM_TOL, (name, rel)

@@ -206,7 +206,7 @@ def _launchers():
 
 def test_every_launcher_is_declared_and_bound():
     names = _launchers()
-    assert len(names) == 12
+    assert len(names) == 14
     header, binding = (CSRC / "launchers.h").read_text(), (CSRC / "bindings.cpp").read_text()
     for name in names:
         assert re.search(r"\bint {}\(".format(name), header), name
@@ -216,7 +216,7 @@ def test_every_launcher_is_declared_and_bound():
 
 def test_every_bound_function_is_called_by_a_wrapper():
     defined = re.findall(r'm\.def\("(\w+)"', (CSRC / "bindings.cpp").read_text())
-    assert len(defined) == 12
+    assert len(defined) == 14
     wrappers = "".join(p.read_text() for p in PACKAGE.rglob("*.py"))
     for name in defined:
         assert "cuda_lib.ops().{}(".format(name) in wrappers, name

@@ -480,8 +480,8 @@ def test_kernel_c_takes_the_groups_the_wrapper_picks():
     assert march_group(32) == TRAIN_GROUP and march_group(16) == march_group(4) == CAPPED_GROUP
     text = (CSRC / "seg_scan.cuh").read_text()
     assert "struct Sample" in text and "finish_sample" in text  # one definition of a sample for C and F
-    assert "seg_scan::load_sample<W>(" in (CSRC / "segment_march_bwd.cu").read_text()
-    assert "seg_scan::finish_sample<W>(" in (CSRC / "segment_march.cu").read_text()
+    assert "seg_scan::load_sample<W, Alpha>(" in (CSRC / "segment_march_bwd.cu").read_text()
+    assert "seg_scan::finish_sample<W, Alpha>(" in (CSRC / "segment_march.cu").read_text()
     for name in ("segment_march.cu", "segment_march_bwd.cu"):
         assert "struct Sample" not in (CSRC / name).read_text(), name
 
