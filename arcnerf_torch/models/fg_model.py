@@ -96,6 +96,8 @@ class FgModel(Base3dModel):
             output = self._forward(inputs, inference_only, get_progress, generator)
             output = self.update_values_for_invalid_rays(output, mask_rays, inputs.get("bkg_color"))
             output["n_valid_pts"] = n_valid
+            if inference_only and profiler.active():  # training counts its steps outside the captured step
+                self.count_stream(n_valid, inputs["rays_o"].shape[0])
             return output
 
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
@@ -147,7 +149,7 @@ class FgModel(Base3dModel):
         n_valid_pts)."""
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
         n_rays, n_pts = rays_o.shape[0], self._n_coarse(inference_only)
-        budget = min(self._compact_budget(n_rays, inference_only), n_rays * n_pts)
+        budget = self.stream_budget(n_rays, inference_only)
         cap = self.obj_bound.get_optim_cfgs("eval_max_pts_per_ray") if inference_only else None
         with profiler.span("model.sample"):
             rand = None
@@ -157,10 +159,21 @@ class FgModel(Base3dModel):
                                 budget, cap, rand, sections=self.stream_sections())
         with profiler.span("model.compact"):
             stream = sample_write(plan)
-            if inference_only and profiler.active():  # training counts its steps outside the captured step
-                profiler.count_compact(plan["n_valid"], budget)
-                profiler.count("sample.fused", 1)
         return dict(inputs, stream=stream), plan["ray_has"], plan["n_valid"]
+
+    def stream_budget(self, n_rays, inference_only):
+        """The rows of the fused sampler's stream for a call of ``n_rays``
+        rays: the compaction budget, at most every ladder slot."""
+        return min(self._compact_budget(n_rays, inference_only), n_rays * self._n_coarse(inference_only))
+
+    def count_stream(self, n_valid, n_rays):
+        """Serving calls' counters on the fused sampler (tracing on): the
+        valid samples ``n_valid`` (a device tensor, one count a call) each
+        against the stream of a call of ``n_rays`` rays, and the calls. An
+        eager call counts its own; a replay of the exact tier's frame graph
+        counts its chunks' from their static counts."""
+        profiler.count_compact(n_valid, self.stream_budget(n_rays, True))
+        profiler.count("sample.fused", n_valid.numel())
 
     def stream_sections(self):
         """Whether the fused sampler writes an SDF's sections (SdfModel)

@@ -112,9 +112,14 @@ class Neus(SdfModel):
             out["normal_pts"] = normal
             out["normal_pts_valid"] = torch.arange(normal.shape[0], device=normal.device) < n_kept
             out["params"] = {"scale": self.forward_scale()[0]}
-        if inference_only and profiler.active():  # training counts its steps outside the captured step
-            profiler.count("sdf.normal_pts", stream["cnt"].sum())
         return out
+
+    def count_stream(self, n_valid, n_rays):
+        """The fused sampler's counters, and the sections whose normals
+        the call takes: every kept one, the valid sections up to the
+        stream's budget."""
+        super().count_stream(n_valid, n_rays)
+        profiler.count("sdf.normal_pts", n_valid.clamp_max(self.stream_budget(n_rays, True)).sum())
 
     def get_est_opacity(self, dt, pts):
         """The occupancy update's opacity: alpha over a section of length

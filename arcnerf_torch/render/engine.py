@@ -13,24 +13,35 @@ rays (one scalar) and renders those rays alone, so no chunk is padded and
 an empty pass of the windowed tier renders nothing. Images come back as
 (H, W, ...) tensors on the device, stats as Python numbers under the JAX
 keys. The multi-device host path of the fast tier (``fused=False``) is not
-ported. While tracing is on (``utils.profiler``) each tier's call is one
-``render.frame`` span around its prepass, pass and chunk spans, and every
-read of a device count goes through ``profiler.host_read``.
+ported. On the card, where the exact tier's chunks take no host read (the
+fused sampler's stream, ``FgModel.fuses_sampling``), a frame's chunk loop
+runs through a ``FrameGraph``: one CUDA graph a frame shape, replayed frame
+after frame; ``RenderEngine.eager`` asks for the eager loop instead. While
+tracing is on (``utils.profiler``) each tier's call is one ``render.frame``
+span around its prepass, pass and chunk spans (a replay's
+``render.replay``), and every read of a device count goes through
+``profiler.host_read``.
 """
 
+import contextlib
 import functools
 
 import torch
 
+from ..models.base_modules import encoding
 from ..models.base_modules.obj_bound import _occ_mask_soa
 from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
+from . import ray_helper
+from .frame_graph import FrameGraph
 from .ray_helper import get_zvals_from_near_far_fix_step
 
 # the sample keys a render feeds the model, per ray
 RAY_KEYS = ("rays_o", "rays_d", "bounds")
 # rays a prepass tests at a time: its (rays, ladder) grids stay near 1 GB
 PREPASS_RAYS = 1 << 16
+# frame shapes whose graphs the exact tier keeps (the oldest goes first)
+MAX_FRAME_GRAPHS = 4
 
 
 def _bilinear_upsample(img, h, w, off, scale):
@@ -72,6 +83,18 @@ def _rank_select(flags, budget):
     return sel, flags.sum()
 
 
+def _chunk_entries():
+    """The chunk's kernel entries as their modules hold them now. A caller
+    may wrap one to watch each call (the encoding's points, a march's
+    stream); a graph replay calls no Python and would hide them. Such a
+    caller should say so through ``RenderEngine.eager``; until the
+    benchmark's work count does, a wrapped entry is taken as that request."""
+    return encoding.hash_encode, ray_helper.segment_march_fwd
+
+
+_OWN_ENTRIES = _chunk_entries()
+
+
 def _frame(tier):
     """A render tier's call as one ``render.frame`` span."""
 
@@ -96,6 +119,21 @@ class RenderEngine:
         self.bound_state = bound_state
         self.device = torch.device(device)
         self.last_n_valid_pts = 0  # valid (capped) samples in the last render
+        self.graphs = {}  # frame key -> FrameGraph
+        self._graphs_read = None  # the addresses of the tensors the graphs read
+        self._eager = False  # inside ``eager``
+
+    @contextlib.contextmanager
+    def eager(self):
+        """The exact tier renders through the eager chunk loop inside the
+        block, for a caller who watches each chunk's calls (a replay calls
+        no Python). Counted as ``render.eager`` where a graph would have
+        rendered the frame."""
+        was, self._eager = self._eager, True
+        try:
+            yield
+        finally:
+            self._eager = was
 
     def set_render_cap(self, cap, n_sample=None, window=False):
         """Set the inference per-ray sample cap (obj_bound.eval_max_pts_per_ray;
@@ -103,7 +141,8 @@ class RenderEngine:
         (obj_bound.eval_n_sample; None keeps the training ladder) and the
         window mode (obj_bound.eval_cap_window: the cap becomes the window
         of ``render_image_windowed``), then refresh the bound, which reads
-        them once when built."""
+        them once when built. Drops the frame graphs, which bake them in."""
+        self.graphs.clear()
         fg = self.model.fg_model
         obj_bound = get_value_from_cfgs_field(fg.cfgs.model, "obj_bound", None)
         if obj_bound is None:
@@ -132,24 +171,64 @@ class RenderEngine:
         return {k: torch.as_tensor(sample[k], dtype=torch.float32).to(self.device)
                 for k in RAY_KEYS if sample.get(k) is not None}
 
-    def _render_rays(self, feed, chunk_rays, cap_offset=None):
+    def _graphs_on(self):
+        """Whether the exact tier renders its chunk loop through
+        ``FrameGraph``: the device captures graphs and the model samples
+        through the fused sampler (no host read in a chunk), and no caller
+        asked for the eager loop (``eager``, or a wrapped kernel entry of
+        the chunk; counted as ``render.eager``). Drops the graphs where a
+        parameter, buffer or occupancy tensor they read was replaced."""
+        fg_state = self.bound_state.get("fg", self.bound_state)
+        if not (FrameGraph.captures_on(self.device) and self.model.fg_model.fuses_sampling(fg_state)):
+            return False
+        if self._eager or _chunk_entries() != _OWN_ENTRIES:
+            profiler.count("render.eager", 1)
+            return False
+        state = [v for v in fg_state.values() if torch.is_tensor(v)]
+        read = tuple(t.data_ptr() for t in (*self.model.parameters(), *self.model.buffers(), *state))
+        if read != self._graphs_read:
+            self.graphs.clear()
+            self._graphs_read = read
+        return True
+
+    def _frame_graph(self, feed, chunk_rays):
+        key = (chunk_rays,) + tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(feed.items()))
+        graph = self.graphs.get(key)
+        if graph is None:
+            if len(self.graphs) >= MAX_FRAME_GRAPHS:
+                self.graphs.pop(next(iter(self.graphs)))
+            graph = self.graphs[key] = FrameGraph(self, feed, chunk_rays)
+        return graph
+
+    def _chunk_loop(self, feed, chunk_rays, cap_offset=None):
         """Render the rays of ``feed`` (flat (n, ...) tensors) in chunks;
-        returns the per-ray outputs as flat (n, ...) tensors. ``cap_offset``
-        is the window of every chunk."""
+        returns (the per-ray outputs as flat (n, ...) tensors, each chunk's
+        written into its rows; each chunk's valid samples (n_chunks,)).
+        ``cap_offset`` is the window of every chunk."""
         n = feed["rays_o"].shape[0]
-        outs, n_valid = [], torch.zeros((), dtype=torch.int64, device=self.device)
-        for s in range(0, n, chunk_rays):
+        flat, n_valid = None, torch.zeros(-(-n // chunk_rays), dtype=torch.int64, device=self.device)
+        for i, s in enumerate(range(0, n, chunk_rays)):
             chunk = {k: v[None, s:s + chunk_rays] for k, v in feed.items()}
             m = chunk["rays_o"].shape[1]
             if cap_offset is not None:
                 chunk["cap_offset"] = cap_offset
             with profiler.span("render.chunk", rays=m):
                 out = self.model(chunk, inference_only=True, bound_state=self.bound_state)
-                n_valid += out.pop("n_valid_pts", 0)
-            outs.append({k: v[0] for k, v in out.items() if v.ndim >= 2 and v.shape[1] == m})
-        self.last_n_valid_pts = n_valid
-        with profiler.span("render.assemble"):
-            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+                if "n_valid_pts" in out:
+                    n_valid[i] = out["n_valid_pts"]
+                if flat is None:
+                    flat = {k: v.new_empty((n,) + v.shape[2:]) for k, v in out.items()
+                            if v.ndim >= 2 and v.shape[1] == m}
+                for k, v in flat.items():
+                    v[s:s + m].copy_(out[k][0])
+        return flat, n_valid
+
+    def _render_rays(self, feed, chunk_rays, cap_offset=None):
+        """The eager chunk loop over ``feed``; returns its per-ray outputs
+        as flat (n, ...) tensors."""
+        flat, n_valid = self._chunk_loop(feed, chunk_rays, cap_offset)
+        self.last_n_valid_pts = n_valid.sum()
+        return flat
 
     def _miss_rgb(self, bkg_color):
         """The colour of a ray that hits nothing: the fed background, else
@@ -171,7 +250,11 @@ class RenderEngine:
         feed = self._feed(sample)
         if bkg_color is not None:
             feed["bkg_color"] = self._miss_rgb(bkg_color).expand(feed["rays_o"].shape[0], 3)
-        flat = self._render_rays(feed, chunk_rays)
+        if self._graphs_on():
+            flat, n_valid = self._frame_graph(feed, chunk_rays).run(feed)
+            self.last_n_valid_pts = n_valid.sum()
+        else:
+            flat = self._render_rays(feed, chunk_rays)
         return {k: v.reshape((h, w) + v.shape[1:]) for k, v in flat.items()}
 
     # --------------------------------------------------------- prepasses

@@ -28,9 +28,11 @@ operation and no host read of its own. On:
   times it as a ``host.read`` span.
 
 Names are dotted by layer (``render.frame``, ``model.sample``,
-``train.replay``, ...). The captured training step calls ``span`` but
-never ``count``: a span has no device operation, so a CUDA graph replays
-the same kernels with tracing on or off.
+``train.replay``, ``render.replay``, ...). The captured training step
+calls ``span`` but never ``count``: a span has no device operation, so a
+CUDA graph replays the same kernels with tracing on or off. The exact
+tier's frame graphs capture with tracing ``suspended`` and count each
+replay outside the graph.
 """
 
 import contextlib
@@ -69,6 +71,19 @@ def active():
     """Whether tracing is on: callers test it before they compute a device
     value only a counter would use."""
     return _on
+
+
+@contextlib.contextmanager
+def suspended():
+    """Tracing off inside the block and as it was after it: a CUDA graph's
+    warm-up and capture record and count nothing (a counter's device sum
+    would be captured, not counted); its replays count."""
+    global _on
+    was, _on = _on, False
+    try:
+        yield
+    finally:
+        _on = was
 
 
 class _Span:

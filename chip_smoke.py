@@ -69,7 +69,9 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    frames (median, host clock around torch.cuda.synchronize()), PSNR
    against the exact frame, stats, peak memory and the launches of A-C and
    the sampler a frame (A and B in every tier, C and the sampler in all
-   but the windowed ones, which launch no sampler). Gates:
+   but the windowed ones, which launch no sampler; the exact tier's from
+   one replayed frame by kernel name: each as often as an eager frame's
+   counters and at least once a replayed chunk). Gates:
    finite (800, 800, ...) images; fast at hit_frac 1.0 against exact (rgb
    max abs <= 5e-2); windows at eps 0 against the uncapped render of the
    4096-ray crop (<= 1e-3); windowed s1 >= 40 dB against the uncapped
@@ -1290,16 +1292,12 @@ def serve(dev):
             "--dataset.eval.center_pixel", "True", "--model.obj_bound.eval_max_pts_per_ray", "16"]
     make_checkpoint(ckpt, argv)  # 64 MB, outside chiprun_out: removed at the end
 
-    reset_launches()
     summary, results = evaluate.main(argv)
     torch.cuda.synchronize()
-    launches = read_launches("ABCS")
-    print("serving path launches:", launches, "eval summary:", summary)
+    print("eval summary:", summary)
     rgb = results[0]["rgb"]
     if rgb.shape != (800, 800, 3) or not np.isfinite(rgb).all():
         raise AssertionError("render: expected a finite (800, 800, 3) image, got {}".format(rgb.shape))
-    if min(launches.values()) <= 0:
-        raise AssertionError("a kernel of the serving path never launched: {}".format(launches))
 
     # the same model on the CPU (plain versions) over a crop of the view
     cfgs = parse_configs(argv)
@@ -1322,7 +1320,10 @@ def serve(dev):
         raise AssertionError("the card's render disagrees with the plain path on the crop")
 
     engine = RenderEngine(model, cfgs, bound_state, dev)
-    serving = capture_chunk(engine, sample, bkg)  # also the timed renders' warm-up
+    reset_launches()
+    serving = capture_chunk(engine, sample, bkg)  # an eager frame: the wrapped march sees every chunk
+    eager_launches = read_launches("ABCS")
+    engine.render_image(sample, bkg_color=bkg)  # the timed renders' warm-up: the frame graph's capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1337,16 +1338,57 @@ def serve(dev):
     print("render 800x800: median {:.2f} ms (runs {}), peak {:.0f} MiB, valid samples/ray {:.3f}, chunk {}".format(
         statistics.median(times) * 1e3, ", ".join("{:.2f}".format(t * 1e3) for t in times), peak, per_ray,
         engine._chunk_for_mesh()))
+    launches = replayed_launches(lambda: engine.render_image(sample, bkg_color=bkg), eager_launches, "serving path")
     os.remove(ckpt)
     return launches, serving
+
+
+# kernels S, B, A and C of the exact tier's chunk, by the name a profile gives them
+FRAME_KERNELS = {"S": "sample_count_kernel", "B": "hash_encode_fwd_kernel", "A": "fused_mlp_fwd_kernel",
+                 "C": "segment_march_fwd_kernel"}
+
+
+def replayed_launches(render, eager, label):
+    """torch.profiler over one exact frame replayed from its frame graph
+    (``render``, the graph captured already): S, B, A and C's launches by
+    kernel name. Gates: the frame replayed its chunks (``render.replays``),
+    captured nothing and rendered nothing eagerly, and each kernel launched
+    as often as in an eager frame of the same view (``eager``: its launch
+    counters) and at least once a chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from arcnerf_torch.utils import profiler
+
+    profiler.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render()
+            torch.cuda.synchronize()
+    finally:
+        profiler.disable()
+    counters = profiler.collect()["counters"]
+    chunks = int(counters.get("render.replays", 0))
+    calls = device_split(prof, 1, "profile of one replayed {} frame".format(label), unit="frame")
+    if calls is None:
+        raise AssertionError("{}: no device events recorded in the replayed frame".format(label))
+    launches = {k: sum(n for name, n in calls.items() if part in name) for k, part in FRAME_KERNELS.items()}
+    print("{}: one replayed frame of {} chunks, launches by kernel name {}; an eager frame's counters {}".format(
+        label, chunks, launches, eager))
+    if chunks <= 0 or counters.get("render.captures") or counters.get("render.eager"):
+        raise AssertionError("{}: the frame did not replay its graph: {}".format(label, counters))
+    for k, n in launches.items():
+        if n != eager[k] or n < chunks:
+            raise AssertionError("{}: kernel {} launched {} times in a replayed frame of {} chunks, an eager frame "
+                                 "{} times".format(label, k, n, chunks, eager[k]))
+    return launches
 
 
 SERVE_CHUNK = 19  # the chunk of 16384 rays holding row 400 (rays 311296-327679), which crosses the spheres
 
 
 def capture_chunk(engine, sample, bkg, chunk=SERVE_CHUNK):
-    """One render of ``sample`` with ``ray_helper.segment_march_fwd``
-    wrapped: the compacted stream kernel C received for ray chunk ``chunk``
+    """One eager render (``engine.eager()``) of ``sample`` with
+    ``ray_helper.segment_march_fwd`` wrapped: the compacted stream kernel C received for ray chunk ``chunk``
     of the frame (sigma, rgb, z, off, cnt, the flags, the background and
     any keyword arguments, such as the group width)."""
     import inspect
@@ -1369,7 +1411,8 @@ def capture_chunk(engine, sample, bkg, chunk=SERVE_CHUNK):
 
     ray_helper.segment_march_fwd = wrapper
     try:
-        engine.render_image(sample, bkg_color=bkg)
+        with engine.eager():
+            engine.render_image(sample, bkg_color=bkg)
     finally:
         ray_helper.segment_march_fwd = inner
     if len(seen) <= chunk:
@@ -1468,7 +1511,8 @@ def tiers(trainer):
     trained model through the trainer's delegates (eval background): for
     each tier of TIERS a warm-up and TIER_RUNS timed frames (median, host
     clock around torch.cuda.synchronize()), PSNR against the exact cap-16
-    frame, stats, peak memory and the launches of A-C a frame; then the
+    frame, stats, peak memory and the launches of A-C and S a frame (the
+    exact tier's from one replayed frame, ``replayed_launches``); then the
     gates, and one torch.profiler pass over a windowed s1 frame. Returns
     the numbers it printed."""
     from arcnerf_torch.datasets import get_dataset
@@ -1495,8 +1539,14 @@ def tiers(trainer):
             imgs, stats = renders[tier](**kwargs)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        launches = {k: v / (TIER_RUNS + 1) for k, v in read_launches("ABCS").items()}
         peak = torch.cuda.max_memory_allocated() / 2**20
+        if tier == "exact":  # a replay calls no Python: its kernels by name against an eager frame's counters
+            reset_launches()
+            with trainer.engine.eager():
+                renders[tier](**kwargs)
+            launches = replayed_launches(lambda: renders[tier](**kwargs), read_launches("ABCS"), key)
+        else:
+            launches = {k: v / (TIER_RUNS + 1) for k, v in read_launches("ABCS").items()}
         check_frame(key, imgs)
         if exact is None:
             exact = imgs["rgb"]

@@ -1395,3 +1395,117 @@ def test_neus_graph_strides_follow_the_eager_steps(dev, tmp_path):
     for name, v in shadow_e.items():
         rel = float((shadow_g[name] - v).norm() / v.norm().clamp_min(1e-12))
         assert rel < GRAPH_PARAM_TOL, (name, rel)
+
+
+# ------------------------------------------- the exact tier's frame graphs
+
+SERVE_WH, SERVE_CAP = 800, 16  # the serving cell's frame: 39 chunks of 16384 rays and one of 1024
+WHITE = (1.0, 1.0, 1.0)
+
+
+def _graph_engines(dev, cfg, argv, n_grid):
+    """(frame-graph engine, eager engine: render inside its ``eager()``)
+    on one model of ``cfg`` with seeded weights (table features large
+    enough that the field varies) and the spheres' occupancy."""
+    import os
+
+    from arcnerf_torch.datasets.synthetic_dataset import sphere_scene_bitfield
+    from arcnerf_torch.models import build_model
+    from arcnerf_torch.render.engine import RenderEngine
+    from arcnerf_torch.utils.cfgs import load_configs, update_configs_by_dotlist
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfgs = update_configs_by_dotlist(load_configs(os.path.join(root, cfg)), list(argv))
+    model = build_model(cfgs, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("embeddings"):
+                p.mul_(1000.0)
+    bound = model.init_bound_state(dev)
+    bound["fg"]["bitfield"] = torch.from_numpy(sphere_scene_bitfield(n_grid, 2.0)).to(dev)
+    return RenderEngine(model, cfgs, bound, dev), RenderEngine(model, cfgs, bound, dev)
+
+
+def _poses(n, wh, dev):
+    from arcnerf_torch.datasets import get_dataset
+    from arcnerf_torch.utils.cfgs import dict_to_obj
+
+    ds = get_dataset(dict_to_obj({"val": {"type": "Synthetic", "n_imgs": n, "wh": [wh, wh], "cam_radius": 2.5,
+                                          "white_bkg": True, "center_pixel": True}}), "data", "val")
+    return [{"rays_o": torch.as_tensor(ds[i]["rays_o"]).to(dev), "rays_d": torch.as_tensor(ds[i]["rays_d"]).to(dev),
+             "H": wh, "W": wh} for i in range(n)]
+
+
+def _traced(fn, eager=None):
+    """``fn()`` with tracing on (inside ``eager.eager()`` where an engine is
+    given); returns (its result, the counters)."""
+    import contextlib
+
+    from arcnerf_torch.utils import profiler
+
+    profiler.enable()
+    try:
+        with eager.eager() if eager is not None else contextlib.nullcontext():
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        profiler.disable()
+    return out, profiler.collect()["counters"]
+
+
+def _assert_frames_equal(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_exact_frames_replay_the_frame_graphs_bit_for_bit(dev):
+    # the serving cell's shapes: five poses of 800x800 at cap 16 (39 chunks
+    # of 16384 rays and the 1024-ray tail) through one graph, captured at
+    # the first frame; each frame bit for bit the eager loop's, 40 chunks
+    # replayed, the counters the eager chunks count (from the chunks' static
+    # counts), and no frame overwritten by the next; a windowed frame
+    # replays nothing
+    graphs, eager = _graph_engines(dev, "configs/expr/synthetic_ngp.yaml", (), 128)
+    for e in (graphs, eager):
+        e.set_render_cap(SERVE_CAP)
+    assert graphs._chunk_for_mesh() == 16384
+    frames = []
+    for i, sample in enumerate(_poses(5, SERVE_WH, dev)):
+        got, counters = _traced(lambda: graphs.render_image(sample, bkg_color=WHITE))
+        want, eager_counters = _traced(lambda: eager.render_image(sample, bkg_color=WHITE), eager)
+        _assert_frames_equal(got, want)
+        frames.append((got, want))
+        assert int(graphs.last_n_valid_pts) == int(eager.last_n_valid_pts) > 0
+        assert counters.get("render.captures", 0) == (1 if i == 0 else 0) and counters["render.replays"] == 40
+        for k in ("compact.valid", "compact.dropped", "sample.fused"):
+            assert counters[k] == eager_counters[k], k
+        assert "render.replays" not in eager_counters and not eager.graphs and eager_counters["render.eager"] == 1
+        assert "render.eager" not in counters
+    for got, want in frames:
+        _assert_frames_equal(got, want)
+    (graph,) = graphs.graphs.values()
+    assert (graph.n_rays, graph.chunk_rays, graph.n_chunks) == (SERVE_WH**2, 16384, 40) and graph.graph is not None
+    graphs.set_render_cap(8, window=True)
+    assert not graphs.graphs
+    (win, _), counters = _traced(lambda: graphs.render_image_windowed(sample, bkg_color=WHITE))
+    assert win["rgb"].shape == (SERVE_WH, SERVE_WH, 3) and "render.replays" not in counters and not graphs.graphs
+
+
+def test_neus_exact_frames_replay_the_frame_graphs_bit_for_bit(dev):
+    # NeuS-NGP's chunk takes its normals by autograd inside the graph: two
+    # poses at 64x64 in chunks of 1000 rays and a 96-ray tail, every output
+    # (the normal map too) bit for bit the eager loop's
+    argv = ("--model.geometry.encoder.hashmap_size", "14", "--model.obj_bound.volume.n_grid", "32",
+            "--model.rays.n_sample", "128", "--model.obj_bound.log_max_allowance", "14")
+    graphs, eager = _graph_engines(dev, "configs/expr/synthetic_neus_ngp.yaml", argv, 32)
+    for e in (graphs, eager):
+        e.set_render_cap(SERVE_CAP)
+    for i, sample in enumerate(_poses(2, 64, dev)):
+        got, counters = _traced(lambda: graphs.render_image(sample, chunk_rays=1000, bkg_color=WHITE))
+        want, eager_counters = _traced(lambda: eager.render_image(sample, chunk_rays=1000, bkg_color=WHITE), eager)
+        assert "normal" in want and 0.0 < float(want["mask"].mean()) < 1.0
+        _assert_frames_equal(got, want)
+        assert counters.get("render.captures", 0) == (1 if i == 0 else 0) and counters["render.replays"] == 5
+        for k in ("compact.valid", "sdf.normal_pts", "sample.fused"):
+            assert counters[k] == eager_counters[k], k
