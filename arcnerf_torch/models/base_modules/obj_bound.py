@@ -9,6 +9,10 @@ and ``VolumeBound.optimize``, the occupancy update. Bounds hold static
 geometry only; the occupancy state is an explicit dict of tensors, and the
 draws come from a ``torch.Generator`` (or are fed explicitly by tests).
 
+The fix-step occupancy ladder has one owner, ``occupied_ladder`` (its step
+``ladder_step``): the sampler here, ``sample_compact`` and the render
+engine's prepasses (through ``VolumeBound.ladder``) all ask it.
+
 A bound reads its optim cfgs once, at construction; the JAX package instead
 rebuilds its bound whenever the cfgs change. So whoever edits the obj_bound
 cfgs after construction (``RenderEngine.set_render_cap``) calls
@@ -45,6 +49,20 @@ def _occ_mask_soa(volume, bitfield, rays_o, rays_d, zvals):
     z = rays_o[:, 2:3] + zvals * rays_d[:, 2:3]
     flat, valid = volume.get_flat_voxel_idx_from_coords(x, y, z)
     return volume.check_flat_in_occ_voxel(flat, valid, bitfield)
+
+
+def ladder_step(volume, n_pts):
+    """The fix-step ladder's step: the volume's diagonal over its slots."""
+    return volume.get_diag_len() / n_pts
+
+
+def occupied_ladder(volume, bitfield, rays_o, rays_d, near, far, n_pts, generator=None, rand=None):
+    """The fix-step ladder of ``n_pts`` slots on near, far (B, 1), jittered
+    by ``generator`` or ``rand`` (B, n_pts) -> zvals (B, n_pts) and the mask
+    of its slots off the clamped tail and in occupied voxels, before any cap."""
+    zvals, mask = get_zvals_from_near_far_fix_step(near, far, ladder_step(volume, n_pts), n_pts,
+                                                   generator=generator, rand=rand)
+    return zvals, mask & _occ_mask_soa(volume, bitfield, rays_o, rays_d, zvals)
 
 
 def build_obj_bound(cfgs):
@@ -160,6 +178,14 @@ class VolumeBound(BasicBound):
         near, far, _, mask = self.volume.ray_volume_intersection(inputs["rays_o"], inputs["rays_d"])
         return near, far, mask[:, 0]
 
+    def ladder(self, state, rays_o, rays_d, near, far, n_pts, generator=None):
+        """``occupied_ladder`` on this volume and the bitfield of ``state``."""
+        return occupied_ladder(self.volume, state["bitfield"], rays_o, rays_d, near, far, n_pts, generator)
+
+    def occupied(self, state, rays_o, rays_d, zvals):
+        """(B, N): whether each of ``zvals`` (B, N) lies in an occupied voxel."""
+        return _occ_mask_soa(self.volume, state["bitfield"], rays_o, rays_d, zvals)
+
     def get_zvals_from_near_far(self, state, near, far, n_pts, inference_only=False, inverse_linear=False,
                                 perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False,
                                 cap_offset=None):
@@ -176,12 +202,10 @@ class VolumeBound(BasicBound):
                                       "(ROADMAP Queue 1, item 4)")
         jitter = generator if perturb and not inference_only else None
         if self.get_optim_cfgs("ray_sample_fix_step"):
-            fix_t = self.volume.get_diag_len() / n_pts
-            zvals, mask_pts = get_zvals_from_near_far_fix_step(near, far, fix_t, n_pts, generator=jitter)
+            zvals, mask_pts = self.ladder(state, rays_o, rays_d, near, far, n_pts, jitter)
         else:
             zvals = get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear, generator=jitter)
-            mask_pts = torch.ones_like(zvals, dtype=torch.bool)
-        mask_pts = mask_pts & _occ_mask_soa(self.volume, state["bitfield"], rays_o, rays_d, zvals)
+            mask_pts = self.occupied(state, rays_o, rays_d, zvals)
         window = bool(self.get_optim_cfgs("eval_cap_window")) and inference_only and cap_offset is not None
         mask_cap = _cap_pts_per_ray(mask_pts, inference_only, self.get_optim_cfgs("eval_max_pts_per_ray"),
                                     offset=cap_offset if window else None)

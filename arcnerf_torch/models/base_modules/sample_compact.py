@@ -9,7 +9,8 @@ training jitter, the occupancy test, the inference cap),
 build. Counterparts in the JAX package:
 ``_occ_mask_soa`` (``models/base_modules/obj_bound.py``),
 ``get_zvals_from_near_far_fix_step`` (``render/ray_helper.py``) and
-``_compact_sel_aux`` (``models/fg_model.py``).
+``_compact_sel_aux`` (``models/fg_model.py``). The ladder is the bound's
+(``obj_bound.occupied_ladder``, the kernel's step ``obj_bound.ladder_step``).
 
 Two phases, so that the model's spans keep their meaning: ``sample_count``
 (the kernel's count and scan; the plain version: the ladder, its masks and
@@ -34,8 +35,7 @@ import numpy as np
 import torch
 
 from ...ops import cuda_lib
-from ...render.ray_helper import get_zvals_from_near_far_fix_step
-from .obj_bound import _cap_pts_per_ray, _occ_mask_soa
+from .obj_bound import _cap_pts_per_ray, ladder_step, occupied_ladder
 
 
 def compact_sel_aux(mask_pts, budget):
@@ -118,8 +118,8 @@ def sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=
     sections on it), and the compaction's indices, which ``sample_write``
     gathers."""
     near, far, _, hit = volume.ray_volume_intersection(rays_o, rays_d)
-    zvals, mask = get_zvals_from_near_far_fix_step(near, far, volume.get_diag_len() / n_pts, n_pts, rand=rand)
-    mask = _cap_pts_per_ray(mask & _occ_mask_soa(volume, bitfield, rays_o, rays_d, zvals), True, cap)
+    zvals, mask = occupied_ladder(volume, bitfield, rays_o, rays_d, near, far, n_pts, rand=rand)
+    mask = _cap_pts_per_ray(mask, True, cap)
     plan = {"rays_o": rays_o, "rays_d": rays_d, "budget": int(budget), "ray_has": hit[:, 0] & mask.any(dim=1),
             "zvals": zvals}
     if sections:
@@ -145,7 +145,7 @@ def sample_count(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand
         return sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap, rand, sections)
     box, inv = _grid(volume)
     args = {"rays_o": rays_o.contiguous(), "rays_d": rays_d.contiguous(), "bitfield": bitfield.contiguous(),
-            "rand": rand, "n_pts": int(n_pts), "fix_t": volume.get_diag_len() / n_pts, "box": box, "inv_voxel": inv}
+            "rand": rand, "n_pts": int(n_pts), "fix_t": ladder_step(volume, n_pts), "box": box, "inv_voxel": inv}
     count_args = dict(sections=True) if sections else {}
     off, cnt, n_valid, ray_has, near_far, clamp, first_z = cuda_lib.ops().sample_count(**args, cap=int(cap or 0),
                                                                                        budget=int(budget),

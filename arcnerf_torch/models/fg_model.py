@@ -6,10 +6,12 @@ window mode, ``_compact_sel_aux``, ``_compact_sel``, ``_compact_budget``,
 ``get_sigma_radiance_by_mask_pts``, ``fused_render_by_mask_pts``,
 ``update_values_for_invalid_rays``), at inference and in training. The
 training draws (sample jitter, sigma noise) come from a ``torch.Generator``
-passed down from the trainer. Where the bound walks its fix-step occupancy
-ladder, ``forward`` samples and compacts in one (``sample_compact``, a
-kernel on the card) and builds no (rays, samples) grid; for an SDF model
-it writes the model's sections. Surface rendering is not ported.
+passed down from the trainer. The bound owns the fix-step occupancy ladder
+(``obj_bound.occupied_ladder``), whose slots ``_n_coarse`` sets. Where the
+bound walks it, ``forward`` samples and compacts in one (``sample_compact``,
+a kernel on the card) and builds no (rays, samples) grid; for an SDF model
+it writes the model's sections. On the grid, ``_compact_stream`` compacts.
+Surface rendering is not ported.
 """
 
 import torch
@@ -186,12 +188,16 @@ class FgModel(Base3dModel):
     # ----------------------------------------------------------- compaction
     _compact_sel_aux = staticmethod(compact_sel_aux)
 
-    @staticmethod
-    def _compact_sel(mask_pts, budget):
-        """(sel, sel_valid) of ``_compact_sel_aux``: the flat indices of the
-        first ``budget`` valid samples; rows past the valid count hold 0."""
-        sel, sel_valid, _, _ = FgModel._compact_sel_aux(mask_pts, budget)
-        return sel, sel_valid
+    def _compact_stream(self, zvals, mask_pts, rays_o, rays_d, budget, inference_only):
+        """The first ``budget`` valid samples of the (B, N) grid, ray-major: the
+        stream {z, pts, dirs, off, cnt} of ``render_stream``, their flat grid
+        indices ``sel`` and the rows that hold one, ``sel_valid``."""
+        with profiler.span("model.compact"):
+            sel, sel_valid, off, cnt = self._compact_sel_aux(mask_pts, budget)
+            z, pts, dirs = gather_stream(sel, zvals, rays_o, rays_d)
+            if inference_only and profiler.active():  # training counts its steps outside the captured step
+                profiler.count_compact(mask_pts.sum(), budget)
+        return {"z": z, "pts": pts, "dirs": dirs, "off": off, "cnt": cnt, "sel": sel, "sel_valid": sel_valid}
 
     def _compact_budget(self, n_rays, inference_only):
         """Compaction budget (obj_bound.log_max_allowance), shrunk at
@@ -217,15 +223,11 @@ class FgModel(Base3dModel):
             dirs = rays_d[:, None, :].expand(n_rays, n_pts, 3).reshape(-1, 3)
             sigma, radiance = self._forward_pts_dir(geo_net, radiance_net, pts, dirs)
             return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
-        with profiler.span("model.compact"):
-            sel, sel_valid = self._compact_sel(mask_pts, budget)
-            _, pts_sel, d_sel = gather_stream(sel, zvals, rays_o, rays_d)
-            if inference_only and profiler.active():  # training counts its steps outside the captured step
-                profiler.count_compact(mask_pts.sum(), budget)
-        sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, pts_sel, d_sel)
+        stream = self._compact_stream(zvals, mask_pts, rays_o, rays_d, budget, inference_only)
+        sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, stream["pts"], stream["dirs"])
         with profiler.span("model.compact"):
             # rows past the valid count go to a dump slot past the grid
-            sel_safe = torch.where(sel_valid, sel, total)
+            sel_safe = torch.where(stream["sel_valid"], stream["sel"], total)
             sigma = sigma_c.new_zeros(total + 1).index_copy(0, sel_safe, sigma_c)[:total]
             radiance = radiance_c.new_zeros((total + 1, 3)).index_copy(0, sel_safe, radiance_c)[:total]
         return sigma.reshape(n_rays, n_pts), radiance.reshape(n_rays, n_pts, 3)
@@ -244,13 +246,7 @@ class FgModel(Base3dModel):
         budget = self._compact_budget(n_rays, inference_only)
         if mask_pts is None or not isinstance(budget, int) or budget <= 0:
             return None
-        budget = min(budget, n_rays * n_pts)
-        with profiler.span("model.compact"):
-            sel, _, off, cnt = self._compact_sel_aux(mask_pts, budget)
-            z_sel, pts_sel, d_sel = gather_stream(sel, zvals, rays_o, rays_d)
-            if inference_only and profiler.active():  # training counts its steps outside the captured step
-                profiler.count_compact(mask_pts.sum(), budget)
-        stream = {"z": z_sel, "pts": pts_sel, "dirs": d_sel, "off": off, "cnt": cnt}
+        stream = self._compact_stream(zvals, mask_pts, rays_o, rays_d, min(budget, n_rays * n_pts), inference_only)
         return self.render_stream(geo_net, radiance_net, stream, inference_only, bkg_color, generator)
 
     def render_stream(self, geo_net, radiance_net, stream, inference_only=True, bkg_color=None, generator=None):

@@ -21,6 +21,8 @@ tracing is on (``utils.profiler``) each tier's call is one ``render.frame``
 span around its prepass, pass and chunk spans (a replay's
 ``render.replay``), and every read of a device count goes through
 ``profiler.host_read``.
+The prepasses ask the bound for its occupancy ladder (``VolumeBound.ladder``)
+at the model's serving length; a windowed frame walks it once.
 """
 
 import contextlib
@@ -29,12 +31,10 @@ import functools
 import torch
 
 from ..models.base_modules import encoding
-from ..models.base_modules.obj_bound import _occ_mask_soa
 from ..utils import profiler
 from ..utils.cfgs import get_value_from_cfgs_field
 from . import ray_helper
 from .frame_graph import FrameGraph
-from .ray_helper import get_zvals_from_near_far_fix_step
 
 # the sample keys a render feeds the model, per ray
 RAY_KEYS = ("rays_o", "rays_d", "bounds")
@@ -258,77 +258,53 @@ class RenderEngine:
         return {k: v.reshape((h, w) + v.shape[1:]) for k, v in flat.items()}
 
     # --------------------------------------------------------- prepasses
-    def _occ_ladder(self, fg_state):
-        """(bound, n_pts) when the sampler culls by occupancy on its
-        fix-step ladder (the only sampler for which the bitfield is part of
-        the render), else (bound, None)."""
+    @torch.inference_mode()
+    def _prepass(self, kind, bound_state, rays_o, rays_d, n_probe=0):
+        """One ``render.prepass`` span over PREPASS_RAYS rays at a time: the
+        bound's box hit and, where the sampler culls by occupancy (the only
+        sampler for which the bitfield is part of the render), the occupancy
+        of its serving ladder (``n_probe <= 0``) or of ``n_probe`` evenly
+        spaced points, by ``kind``: "hit" any, "count" the sum."""
         fg = self.model.fg_model
+        fg_state = bound_state.get("fg", bound_state)
         bound = fg.get_obj_bound()
-        if not bound.occupancy_ladder(fg_state):
-            return bound, None
-        return bound, int(bound.get_optim_cfgs().get("eval_n_sample") or fg.get_ray_cfgs("n_sample"))
-
-    def _near_far(self, bound, fg_state, rays_o, rays_d):
-        near, far, hit = bound.get_near_far_from_rays(fg_state, {"rays_o": rays_o, "rays_d": rays_d})
-        near = near if near.ndim == 2 else near[:, None]
-        far = far if far.ndim == 2 else far[:, None]
-        return near, far, hit
-
-    def _by_ray_chunks(self, fn, rays_o, rays_d):
-        """``fn(rays_o, rays_d)`` over PREPASS_RAYS rays at a time,
-        concatenated (None where ``fn`` gives None)."""
-        outs = [fn(rays_o[s:s + PREPASS_RAYS], rays_d[s:s + PREPASS_RAYS])
-                for s in range(0, rays_o.shape[0], PREPASS_RAYS)]
+        ladder = bound.occupancy_ladder(fg_state)
+        outs = []
+        with profiler.span("render.prepass", kind=kind):
+            for s in range(0, rays_o.shape[0], PREPASS_RAYS):
+                o, d = rays_o[s:s + PREPASS_RAYS], rays_d[s:s + PREPASS_RAYS]
+                near, far, hit = bound.get_near_far_from_rays(fg_state, {"rays_o": o, "rays_d": d})
+                if ladder:
+                    if n_probe <= 0:
+                        occ = bound.ladder(fg_state, o, d, near, far, fg._n_coarse(True))[1]
+                    else:
+                        t = torch.linspace(0.0, 1.0, n_probe, device=near.device)[None, :]
+                        occ = bound.occupied(fg_state, o, d, near + (far - near) * t)
+                    hit = hit & occ.any(1) if kind == "hit" else torch.where(hit, occ.sum(1, dtype=torch.int32), 0)
+                outs.append(hit)
         return None if outs[0] is None else torch.cat(outs)
 
-    @torch.inference_mode()
     def _hit_prepass(self, bound_state, rays_o, rays_d, n_probe=0):
         """(n,) bool: the rays that can hit anything: the bound's intersect
         and, where the sampler culls by occupancy, an occupancy probe along
         [near, far]. ``n_probe <= 0`` probes the sampler's own fix-step
-        ladder, which is exact (hit == the sampler finds a valid sample); a
-        positive ``n_probe`` probes that many evenly spaced points. None when
-        nothing culls a ray."""
-        fg_state = bound_state.get("fg", bound_state)
-        bound, n_pts = self._occ_ladder(fg_state)
-        with profiler.span("render.prepass", kind="hit"):
-            return self._by_ray_chunks(lambda o, d: self._hit_chunk(bound, fg_state, n_pts, o, d, n_probe), rays_o,
-                                       rays_d)
+        ladder, which is exact (hit == the sampler finds a valid sample ==
+        ``_count_prepass(...) > 0``); a positive ``n_probe`` probes that
+        many evenly spaced points. None when nothing culls a ray."""
+        return self._prepass("hit", bound_state, rays_o, rays_d, n_probe)
 
-    def _hit_chunk(self, bound, fg_state, n_pts, rays_o, rays_d, n_probe):
-        near, far, hit = self._near_far(bound, fg_state, rays_o, rays_d)
-        if n_pts is not None:
-            if n_probe <= 0:
-                zvals, mask = get_zvals_from_near_far_fix_step(near, far, bound.volume.get_diag_len() / n_pts, n_pts)
-            else:
-                t = torch.linspace(0.0, 1.0, n_probe, device=near.device)[None, :]
-                zvals = near + (far - near) * t
-                mask = torch.ones_like(zvals, dtype=torch.bool)
-            occ = mask & _occ_mask_soa(bound.volume, fg_state["bitfield"], rays_o, rays_d, zvals)
-            occ_hit = occ.any(dim=1)
-            hit = occ_hit if hit is None else (hit & occ_hit)
-        return hit
-
-    @torch.inference_mode()
     def _count_prepass(self, bound_state, rays_o, rays_d):
         """(n,) int32: each ray's valid samples on the sampler's own
         fix-step ladder (0 for rays that miss the bound), which sizes the
         windowed tier's passes; None when the bound has no occupancy."""
-        fg_state = bound_state.get("fg", bound_state)
-        bound, n_pts = self._occ_ladder(fg_state)
-        if n_pts is None:
+        if not self.model.fg_model.get_obj_bound().occupancy_ladder(bound_state.get("fg", bound_state)):
             return None
-        with profiler.span("render.prepass", kind="count"):
-            return self._by_ray_chunks(lambda o, d: self._count_chunk(bound, fg_state, n_pts, o, d), rays_o, rays_d)
+        return self._prepass("count", bound_state, rays_o, rays_d)
 
-    def _count_chunk(self, bound, fg_state, n_pts, rays_o, rays_d):
-        near, far, hit = self._near_far(bound, fg_state, rays_o, rays_d)
-        zvals, mask = get_zvals_from_near_far_fix_step(near, far, bound.volume.get_diag_len() / n_pts, n_pts)
-        occ = mask & _occ_mask_soa(bound.volume, fg_state["bitfield"], rays_o, rays_d, zvals)
-        counts = occ.sum(1, dtype=torch.int32)
-        if hit is not None:
-            counts = torch.where(hit, counts, 0)
-        return counts
+    def _hit_set(self, feed, n_probe):
+        """The hit prepass over ``feed``'s rays; every ray where nothing culls."""
+        hit = self._hit_prepass(self.bound_state, feed["rays_o"], feed["rays_d"], n_probe)
+        return torch.ones(feed["rays_o"].shape[0], dtype=torch.bool, device=self.device) if hit is None else hit
 
     # -------------------------------------------------------- fast render
     def _fast_fused(self, feed, miss_rgb, n_probe, budget, chunk):
@@ -336,10 +312,7 @@ class RenderEngine:
         chunks, write them into the image over the miss fill (rgb the miss
         colour, the rest 0). Returns (flat images, hit count)."""
         n = feed["rays_o"].shape[0]
-        hit = self._hit_prepass(self.bound_state, feed["rays_o"], feed["rays_d"], n_probe)
-        if hit is None:
-            hit = torch.ones(n, dtype=torch.bool, device=self.device)
-        sel, n_hit = _rank_select(hit, budget)
+        sel, n_hit = _rank_select(self._hit_set(feed, n_probe), budget)
         n_hit = profiler.host_read(n_hit, "render.hit_count")
         m = min(n_hit, budget)
         # a frame with no hit still renders one ray, for the output keys
@@ -413,10 +386,11 @@ class RenderEngine:
         return imgs, dict(stats, scale=scale, shaded_rays=sub["H"] * sub["W"])
 
     # -------------------------------------- transmittance-continuation render
-    def _windowed_fused(self, feed, miss_rgb, hit_bkg, n_probe, budget1, pass_budgets, chunk, cap, eps):
+    def _windowed_fused(self, feed, miss_rgb, hit_bkg, hit, n_hit, budget1, pass_budgets, chunk, cap, eps):
         """Pass 0 shades the first ``cap`` valid samples (the window) of the
-        first ``budget1`` hit rays. Pass p shades window p of the rays still
-        alive - transmittance T above ``eps`` and every earlier window full -
+        first ``budget1`` rays of the hit set ``hit`` (n,), of count ``n_hit``
+        (None: read here). Pass p shades window p of the rays still alive -
+        transmittance T above ``eps`` and every earlier window full -
         up to ``pass_budgets[p - 1]`` of them, each weighted by its carried
         T. Windows march with the pre-cap occupancy mask, so each sample's
         alpha is the full render's and the weighted sum telescopes: a ray
@@ -425,11 +399,9 @@ class RenderEngine:
         images, hit count, rays alive at the end, clipped alive rays, alive
         rays entering each pass)."""
         n = feed["rays_o"].shape[0]
-        hit = self._hit_prepass(self.bound_state, feed["rays_o"], feed["rays_d"], n_probe)
-        if hit is None:
-            hit = torch.ones(n, dtype=torch.bool, device=self.device)
-        sel, n_hit = _rank_select(hit, budget1)
-        n_hit = profiler.host_read(n_hit, "render.hit_count")
+        sel, n_sel = _rank_select(hit, budget1)
+        if n_hit is None:
+            n_hit = profiler.host_read(n_sel, "render.hit_count")
         m1 = min(n_hit, budget1)
         miss_depth = float(self.model.fg_model.get_render_cfgs()["depth_far"])
         imgs = {"rgb": miss_rgb.expand(n, 3).clone(), "depth": torch.full((n,), miss_depth, device=self.device),
@@ -570,14 +542,14 @@ class RenderEngine:
                 out.append(budget_p // chunk_p * chunk_p)
             return tuple(out)
 
-        pass_budgets = None
+        pass_budgets, hit, n_hit = None, None, None  # one prepass a frame: its hit set goes on to the passes
         if pass_budget_rays is not None:
             if budget_rays is not None:
                 n_chunks1 = max(1, min(n_chunks_max, -(-int(budget_rays) // chunk_rays)))
             else:
-                hit = self._hit_prepass(self.bound_state, feed["rays_o"], feed["rays_d"], n_probe)
-                n_chunks1 = n_chunks_max if hit is None else pow2_chunks(profiler.host_read(hit.sum(),
-                                                                                            "render.hit_count"))
+                hit = self._hit_set(feed, n_probe)
+                n_hit = profiler.host_read(hit.sum(), "render.hit_count")
+                n_chunks1 = pow2_chunks(n_hit)
             pass_budgets = ray_budgets(pass_budget_rays)
         elif adaptive_budget:
             counts = self._count_prepass(self.bound_state, feed["rays_o"], feed["rays_d"])
@@ -587,10 +559,16 @@ class RenderEngine:
                 # rays with at least p * cap valid samples, for p = 0 .. n_pass - 1
                 full = torch.bincount((counts // cap).clamp_max(n_pass).long(), minlength=n_pass + 1)
                 at_least = profiler.host_read(full.flip(0).cumsum(0).flip(0), "render.ladder", torch.Tensor.tolist)
-                n_chunks1 = pow2_chunks(profiler.host_read((counts > 0).sum(), "render.hit_count"))
+                hit = counts > 0  # the hit prepass's set on the same ladder
+                n_hit = profiler.host_read(hit.sum(), "render.hit_count")
+                n_chunks1 = pow2_chunks(n_hit)
                 pass_budgets = ray_budgets(at_least[1:n_pass])
+                if n_probe > 0:  # the passes take the probe's set instead
+                    hit = n_hit = None
         else:
             n_chunks1 = _hit_budget(n, hit_frac, chunk_rays) // chunk_rays
+        if hit is None:
+            hit = self._hit_set(feed, n_probe)
         budget1 = n_chunks1 * chunk_rays
         if pass_budgets is None:
             # alive rays drain geometrically
@@ -600,7 +578,7 @@ class RenderEngine:
         # the background is not fed to the model: it is composited once, at the end
         miss = self._miss_rgb(bkg_color) if bkg_color is not None else torch.zeros(3, device=self.device)
         hit_bkg = miss if profiler.host_read((miss != 0.0).any(), "render.background", bool) else None
-        flat, n_hit, n_alive_end, clipped, alive = self._windowed_fused(feed, miss, hit_bkg, n_probe, budget1,
+        flat, n_hit, n_alive_end, clipped, alive = self._windowed_fused(feed, miss, hit_bkg, hit, n_hit, budget1,
                                                                         pass_budgets, chunk_rays, cap, float(eps))
         imgs = {k: v.reshape((h, w) + v.shape[1:]) for k, v in flat.items()}
         stats = {"hit_frac": n_hit / max(n, 1), "budget_rays": budget1, "hit_clipped": max(0, n_hit - budget1),

@@ -278,7 +278,7 @@ def test_counters_and_reads(runs, case):
         assert counters["compact.valid"] > 0 and counters["compact.dropped"] == 0
     elif case == "windowed":
         passes = sum(1 for s in rec["spans"] if s["name"] == "render.pass")
-        assert reads == {"render.ladder": 1, "render.hit_count": 2, "render.alive": passes - 1,
+        assert reads == {"render.ladder": 1, "render.hit_count": 1, "render.alive": passes - 1,
                          "render.alive_end": 1, "render.background": 1}
         assert set(counters) <= {"compact.valid", "compact.dropped"}
     else:
