@@ -1,4 +1,4 @@
-// The Python binding of the kernels' C launchers (kernels A-L, the sampler): one
+// The Python binding of the kernels' C launchers (kernels A-N, the sampler): one
 // function per launcher of launchers.h, called by the wrappers in
 // arcnerf_torch (ops/, models/base_modules/encoding.py, render/ray_helper.py).
 //
@@ -273,6 +273,71 @@ std::tuple<Tensor, Tensor> hash_dx_bwd(const Tensor& xyz, const Tensor& table, c
     return {d_table, d_g};
 }
 
+// ------------------------------------------------------------ M and N
+
+constexpr int64_t kGeoIn = 32, kGeoHid = 64, kGeoOut = 17;  // the chain geo_chain.cu is built for
+
+void require_geo_chain(const char* name, const Tensor& enc, const Tensor& w1, const Tensor& w2,
+                       const std::optional<Tensor>& n_valid, double beta) {
+    require(name, enc, ScalarType::Float, enc);
+    require(name, w1, ScalarType::Float, enc);
+    require(name, w2, ScalarType::Float, enc);
+    TORCH_CHECK_VALUE(enc.dim() == 2 && enc.size(1) == kGeoIn, name, ": expected (N, 32) rows, got shape ",
+                      shape_str(enc.sizes()));
+    TORCH_CHECK_VALUE(w1.dim() == 2 && w1.size(0) == kGeoIn && w1.size(1) == kGeoHid, name,
+                      ": expected a (32, 64) first layer, got shape ", shape_str(w1.sizes()));
+    TORCH_CHECK_VALUE(w2.dim() == 2 && w2.size(0) == kGeoHid && w2.size(1) == kGeoOut, name,
+                      ": expected a (64, 17) last layer, got shape ", shape_str(w2.sizes()));
+    TORCH_CHECK_VALUE(beta > 0, name, ": the softplus beta must be positive, got ", beta);
+    require_aligned(name, enc);
+    if (n_valid) {
+        require(name, *n_valid, ScalarType::Long, enc);
+        require_numel(name, *n_valid, 1, "n_valid");
+    }
+}
+
+// enc (N, 32), w1 (32, 64), w2 (64, 17) f32, n_valid () int64 or none ->
+// out (N, 17), g (N, 32) f32 (kernel M): rows at or past n_valid are 0.
+std::tuple<Tensor, Tensor> geo_chain_fwd(const Tensor& enc, const Tensor& w1, const Tensor& w2,
+                                         const std::optional<Tensor>& n_valid, double beta) {
+    const char* name = "geo_chain_fwd";
+    require_geo_chain(name, enc, w1, w2, n_valid, beta);
+    c10::cuda::CUDAGuard guard(enc.device());
+    const int64_t n = enc.size(0);
+    Tensor out = at::empty({n, kGeoOut}, enc.options()), g = at::empty({n, kGeoIn}, enc.options());
+    if (n > 0) {
+        check_status(name, arcnerf_geo_chain_fwd(enc.data_ptr(), n, n_valid ? n_valid->data_ptr() : nullptr,
+                                                 w1.data_ptr(), w2.data_ptr(), static_cast<float>(beta),
+                                                 out.data_ptr(), g.data_ptr(), stream_of(enc)));
+    }
+    return {out, g};
+}
+
+// The same inputs and d_out (N, 17), d_g (N, 32) f32 -> d_enc (N, 32), dw1
+// (32, 64), dw2 (64, 17) f32 (kernel N and its reduce).
+std::tuple<Tensor, Tensor, Tensor> geo_chain_bwd(const Tensor& enc, const Tensor& w1, const Tensor& w2,
+                                                 const Tensor& d_out, const Tensor& d_g,
+                                                 const std::optional<Tensor>& n_valid, double beta) {
+    const char* name = "geo_chain_bwd";
+    require_geo_chain(name, enc, w1, w2, n_valid, beta);
+    require(name, d_out, ScalarType::Float, enc);
+    require(name, d_g, ScalarType::Float, enc);
+    const int64_t n = enc.size(0);
+    require_numel(name, d_out, n * kGeoOut, "d_out");
+    require_numel(name, d_g, n * kGeoIn, "d_g");
+    require_aligned(name, d_g);
+    c10::cuda::CUDAGuard guard(enc.device());
+    Tensor d_enc = at::empty({n, kGeoIn}, enc.options());
+    if (n == 0) return {d_enc, at::zeros({kGeoIn, kGeoHid}, enc.options()), at::zeros({kGeoHid, kGeoOut}, enc.options())};
+    Tensor dw1 = at::empty({kGeoIn, kGeoHid}, enc.options()), dw2 = at::empty({kGeoHid, kGeoOut}, enc.options());
+    Tensor parts = at::empty({arcnerf_geo_chain_bwd_parts(n), arcnerf_geo_chain_part_size()}, enc.options());
+    check_status(name, arcnerf_geo_chain_bwd(enc.data_ptr(), n, n_valid ? n_valid->data_ptr() : nullptr,
+                                             w1.data_ptr(), w2.data_ptr(), d_out.data_ptr(), d_g.data_ptr(),
+                                             static_cast<float>(beta), d_enc.data_ptr(), dw1.data_ptr(),
+                                             dw2.data_ptr(), parts.data_ptr(), stream_of(enc)));
+    return {d_enc, dw1, dw2};
+}
+
 // ------------------------------------------------------------ C and F
 
 // The compacted stream sigma (K,), rgb (K, 3), z (K,) f32 and per ray off,
@@ -536,7 +601,7 @@ std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>> sample_write(const Ten
 }  // namespace
 
 PYBIND11_MODULE(ARCNERF_MODULE, m) {
-    m.doc() = "arcnerf_torch's CUDA kernels A-L and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
+    m.doc() = "arcnerf_torch's CUDA kernels A-N and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
     namespace py = pybind11;
     m.def("fused_mlp_fwd", &fused_mlp_fwd, py::arg("x"), py::arg("packed"), py::arg("din_pad"), py::arg("n_hidden"),
           py::arg("d_out"), py::arg("dout_pad"), py::arg("save_pre"));
@@ -568,4 +633,8 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
           py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("near_far"),
           py::arg("clamp"), py::arg("first_z"), py::arg("off"), py::arg("cnt"), py::arg("n_valid"),
           py::arg("budget"), py::arg("sections") = false, py::arg("cap") = 0);
+    m.def("geo_chain_fwd", &geo_chain_fwd, py::arg("enc"), py::arg("w1"), py::arg("w2"), py::arg("n_valid"),
+          py::arg("beta"));
+    m.def("geo_chain_bwd", &geo_chain_bwd, py::arg("enc"), py::arg("w1"), py::arg("w2"), py::arg("d_out"),
+          py::arg("d_g"), py::arg("n_valid"), py::arg("beta"));
 }

@@ -1,4 +1,4 @@
-// The kernels' C launchers (kernels A-L, the sampler), declared once for
+// The kernels' C launchers (kernels A-N, the sampler), declared once for
 // the kernels that define them and for the Python binding that calls them
 // (bindings.cpp): a launcher whose definition drifts from this
 // declaration does not compile. Plain C++, no CUDA types.
@@ -68,5 +68,14 @@ int arcnerf_hash_dx(const void* xyz, long long n_pts, const void* table, const v
 int arcnerf_hash_dx_bwd(const void* xyz, long long n_pts, const void* table, const void* g, const void* g_dx,
                         int n_levels, int log2_table, int n_feat, const void* res, const float* aabb_min,
                         const float* aabb_len, int variant, int read_bf16, void* d_table, void* d_g, void* stream);
+// M and N, geo_chain.cu: NeuS-NGP's geometry chain with its input gradient, and its backward
+// (n_valid: an int64 on the device, the rows to compute, or null; N's scratch: parts x part_size floats)
+int arcnerf_geo_chain_fwd(const void* enc, long long n_rows, const void* n_valid, const void* w1, const void* w2,
+                          float beta, void* out, void* g, void* stream);
+int arcnerf_geo_chain_bwd(const void* enc, long long n_rows, const void* n_valid, const void* w1, const void* w2,
+                          const void* d_out, const void* d_g, float beta, void* d_enc, void* dw1, void* dw2,
+                          void* parts, void* stream);
+long long arcnerf_geo_chain_bwd_parts(long long n_rows);
+long long arcnerf_geo_chain_part_size();
 
 }  // extern "C"

@@ -12,6 +12,16 @@ from ...ops.trunc_exp import trunc_exp
 from ...utils.cfgs import Obj, obj_to_dict
 
 
+def softplus(beta):
+    """softplus(beta x) / beta, the callable carrying its ``beta`` (the
+    fused geometry chain reads it: ``sdf_model.fuses_geo_chain``)."""
+    def act(x):
+        return F.softplus(beta * x) / beta
+
+    act.beta = beta
+    return act
+
+
 def get_activation(cfg=None, default_cfg=None):
     """cfg: Obj/dict with 'type' (+ optional params) -> callable.
 
@@ -30,8 +40,7 @@ def get_activation(cfg=None, default_cfg=None):
     if act_type == "relu":
         return torch.relu
     if act_type == "softplus":
-        beta = float(cfg.get("beta", 1.0))
-        return lambda x: F.softplus(beta * x) / beta
+        return softplus(float(cfg.get("beta", 1.0)))
     if act_type == "leakyrelu":
         slope = float(cfg.get("slope", 0.01))
         return lambda x: F.leaky_relu(x, negative_slope=slope)

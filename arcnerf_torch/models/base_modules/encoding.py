@@ -492,3 +492,14 @@ class HashGridEmbedder(nn.Module):
         if self.include_input:
             return torch.cat([xyz, embed], dim=-1)
         return embed
+
+    def input_gradient(self, xyz, g):
+        """d/dxyz (B, 3) of the table's features for their gradient ``g`` (B,
+        L F), the points given apart (kernel K): differentiable in the table
+        and ``g`` (kernel L in the backward) where grad mode is on and
+        either requires a gradient. The geometry chain's fused path
+        (``sdf_model.geo_with_grad``) takes the normal here."""
+        args = (self.resolutions, self.aabb_min, self.aabb_len, self.variant, self.read_bf16, self._res)
+        if torch.is_grad_enabled() and (g.requires_grad or self.embeddings.requires_grad):
+            return _HashDxFunction.apply(xyz, self.embeddings, g, *args)
+        return hash_encode_dx(xyz, self.embeddings, g.contiguous(), *args)

@@ -90,7 +90,8 @@ class Neus(SdfModel):
                                       "not ported yet (ROADMAP Queue 1, item 4)")
         stream = inputs["stream"]
         pts, dirs = stream["pts"], stream["dirs"]
-        sdf, feat, normal = geo_with_grad(self.geo_net, pts, create_graph=not inference_only)
+        n_kept = stream["cnt"].sum()  # the kept sections, the rows the fused chain computes
+        sdf, feat, normal = geo_with_grad(self.geo_net, pts, create_graph=not inference_only, n_rows=n_kept)
         with profiler.span("model.field"):
             radiance = self.radiance_net(pts, dirs, normal, feat)
         with profiler.span("model.sdf_alpha"):
@@ -108,7 +109,6 @@ class Neus(SdfModel):
                                      group=group, alpha=True)
                 out["normal"] = unit["rgb"]
         if not inference_only:
-            n_kept = stream["cnt"].sum()
             out["normal_pts"] = normal
             out["normal_pts_valid"] = torch.arange(normal.shape[0], device=normal.device) < n_kept
             out["params"] = {"scale": self.forward_scale()[0]}
@@ -119,15 +119,14 @@ class Neus(SdfModel):
         the call takes: every kept one, the valid sections up to the
         stream's budget."""
         super().count_stream(n_valid, n_rays)
-        profiler.count("sdf.normal_pts", n_valid.clamp_max(self.stream_budget(n_rays, True)).sum())
+        self.count_normal_pts(n_valid.clamp_max(self.stream_budget(n_rays, True)).sum())
 
     def get_est_opacity(self, dt, pts):
         """The occupancy update's opacity: alpha over a section of length
         dt / sqrt(3) along -pts, from the sdf and the first-order normal."""
         rays_d = -normalize(pts)
         sdf, _, normal = geo_with_grad(self.geo_net, pts)
-        if profiler.active():
-            profiler.count("sdf.normal_pts", pts.shape[0])
+        self.count_normal_pts(pts.shape[0])
         with profiler.span("model.sdf_alpha"):
             slope = (rays_d * normal).sum(-1)
             dist = torch.full_like(slope, dt / math.sqrt(3.0))

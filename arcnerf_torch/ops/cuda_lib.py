@@ -59,6 +59,8 @@ _SIGNATURES = {
                              _P, _P],
     "arcnerf_hash_dx": [_P, _LL, _P, _P, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P],
     "arcnerf_hash_dx_bwd": [_P, _LL, _P, _P, _P, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P, _P],
+    "arcnerf_geo_chain_fwd": [_P, _LL, _P, _P, _P, _FV, _P, _P, _P],
+    "arcnerf_geo_chain_bwd": [_P, _LL, _P, _P, _P, _P, _P, _FV, _P, _P, _P, _P, _P],
 }
 
 _ops = None

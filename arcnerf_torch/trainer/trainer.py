@@ -26,8 +26,8 @@ device tensor, and an explicit occupancy state dict:
 - while tracing is on (``utils.profiler``) a stride or an eager step is
   one ``train.stride`` span, the occupancy update ``train.occupancy``, and
   the steps' valid samples past the point budget (``compact.dropped``)
-  and an SDF's kept sections (``sdf.normal_pts``) are counted outside the
-  captured step;
+  and an SDF's kept sections (``sdf.normal_pts``; ``sdf.geo_fused`` where
+  the geometry chain runs fused) are counted outside the captured step;
 - validation renders through the serving path (``RenderEngine``), whose
   render tiers the trainer also hands on (``set_render_cap``,
   ``render_image_fast``, ``render_image_interactive``,
@@ -293,11 +293,12 @@ class ArcNerfTrainer:
     def _count_steps(self, n_valid):
         """The steps' compaction counters (``n_valid``: their valid-sample
         counts) and, for an SDF model, ``sdf.normal_pts``: the sections
-        each step keeps, whose normals it takes."""
+        each step keeps, whose normals it takes (``sdf.geo_fused`` too where
+        they go through the fused geometry chain)."""
         budget = 1 << self.log_max_allowance
         profiler.count_compact(n_valid, budget)
         if profiler.active() and self.model.fg_model.sigma_reverse():
-            profiler.count("sdf.normal_pts", n_valid.clamp_max(budget).sum())
+            self.model.fg_model.count_normal_pts(n_valid.clamp_max(budget).sum())
 
     def _count_fused_sampling(self, steps):
         """Count ``steps`` training steps under ``sample.fused`` where the

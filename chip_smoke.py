@@ -94,6 +94,10 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    budget cuts the stream) and 64 diagonal rays of a full grid (every
    slot valid, the sections clipped at 1024), bit for bit with its plain
    version; kernels C and F in their alpha mode on each stream it wrote;
+   kernels M and N (the fused geometry chain and its backward, with the
+   reduce) at a step's 2^18 rows, M also at an occupancy update's 2^20
+   points, against their plain versions and autograd's create-graph
+   chain (the library yardstick), each beside its f32 FMA bound;
    then 48 eager steps of configs/expr/synthetic_neus_ngp.yaml (each
    kernel's launches a step, the loss finite).
    The graph phase, last (its draws do not always repeat on the card, so
@@ -110,8 +114,10 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    every loss within 1e-2 relative (the two eager copies show the spread
    of kernel E's atomics). (c) Median ms/step and rays/s of eager steps
    and of graph replays at the same bucket. (d) torch.profiler over one
-   stride of replays: device busy and idle, Adam's time, and each of A-F
-   launched a replay as often as an eager step launches it.
+   stride of replays, cold (printed: the profiler misses the replays it
+   starts during) and after a warm-up stride: device busy and idle,
+   Adam's time, and in the latter each of A-F launched a replay as often
+   as an eager step launches it.
 7. Prints the kernel table as JSON (A-F's and the sampler's launches from
    the training run,
    G-J's from the tools; G-J's times at the probes' largest shape, J's
@@ -1264,6 +1270,11 @@ def kernel_counters():
 
     if hasattr(encoding, "hash_encode_dx"):  # kernels K and L (a tree from before them has none)
         counters.update(K=encoding.hash_encode_dx, L=encoding.hash_dx_bwd)
+    try:  # kernels M and N (a tree from before them has none)
+        from arcnerf_torch.ops import geo_chain
+    except ImportError:
+        return counters
+    counters.update(M=geo_chain.geo_chain_fwd, N=geo_chain.geo_chain_bwd)
     return counters
 
 
@@ -1856,9 +1867,10 @@ def graph_against_eager(graph_trainer, expr):
 def graph_speed(graph_trainer, eager):
     """(c) median ms/step of eager steps and of graph replays at the same
     bucket (strides off the occupancy cadence, CUDA events around each);
-    (d) torch.profiler over one stride of replays, whose kernels A-F must
-    each launch as often a replay as the counters show for an eager step."""
-    from torch.profiler import ProfilerActivity, profile
+    (d) torch.profiler over one stride of replays, cold and after a
+    warm-up stride: in the latter kernels A-F must each launch as often a
+    replay as the counters show for an eager step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     n_rays = graph_trainer.pipeline.n_rays
     eager_ms = steady_steps(eager)
@@ -1880,18 +1892,30 @@ def graph_speed(graph_trainer, eager):
     eager.train_step(eager.step + 1 if (eager.step + 1) % GRAPH_STRIDE else eager.step + 2)
     torch.cuda.synchronize()
     expected = read_launches("ABCDEF")
-    epoch = graph_trainer.step + 1
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        graph_trainer.train_steps(epoch, GRAPH_STRIDE)
-        torch.cuda.synchronize()
-    calls = device_split(prof, GRAPH_STRIDE, "graph profile of one stride ({} replays)".format(GRAPH_STRIDE))
-    if calls is None:
-        raise AssertionError("graph profile: no device events recorded")
-    for key, parts in PROFILE_KERNELS.items():
-        seen = sum(n for name, n in calls.items() if parts[0] in name)
-        if seen != expected[key] * GRAPH_STRIDE:
+    # the profiler misses the kernels of replays launched while it starts
+    # up (seen: the first one or two of a stride): a stride profiled cold
+    # is printed, and the launches are checked on a stride after a warm-up
+    # stride under the profiler's schedule
+    for warm in (0, 1):
+        epoch = graph_trainer.step + 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warm, active=1, repeat=1)) as prof:
+            for i in range(warm + 1):
+                graph_trainer.train_steps(epoch + i * GRAPH_STRIDE, GRAPH_STRIDE)
+                torch.cuda.synchronize()
+                prof.step()
+        calls = device_split(prof, GRAPH_STRIDE, "graph profile of one stride ({} replays{})".format(
+            GRAPH_STRIDE, ", after a warm-up stride" if warm else ", cold"))
+        if calls is None:
+            raise AssertionError("graph profile: no device events recorded")
+        seen = {key: sum(n for name, n in calls.items() if parts[0] in name) for key, parts in PROFILE_KERNELS.items()}
+        print("graph profile{}: launches seen {}, an eager step's times {}: {}".format(
+            " after a warm-up stride" if warm else " cold", seen, GRAPH_STRIDE,
+            {key: expected[key] * GRAPH_STRIDE for key in seen}))
+    for key in PROFILE_KERNELS:
+        if seen[key] != expected[key] * GRAPH_STRIDE:
             raise AssertionError("graph profile: kernel {} launched {} times in {} replays, an eager step launches "
-                                 "it {} times".format(key, seen, GRAPH_STRIDE, expected[key]))
+                                 "it {} times".format(key, seen[key], GRAPH_STRIDE, expected[key]))
     print("graph profile: kernels A-F launched as an eager step launches them ({} a step)".format(expected))
     # Adam reads the parameter, its gradient and both moments and writes
     # back all but the gradient: 28 bytes a parameter; 11 operations each
@@ -2041,6 +2065,78 @@ def compare_sections(dev, gen):
     return rows, stats
 
 
+GEO_ROWS, GEO_OCC_PTS = 1 << 18, 1 << 20  # a NeuS step's kept sections; an occupancy update's points
+# f32 FMAs a row: M (z, out, g) and N's essential work (u, d_out W2^T, d_enc,
+# dW1's two products, dW2), without its recompute of z
+M_FMAS, N_FMAS = 32 * 64 + 64 * 17 + 64 * 32, 32 * 64 + 64 * 17 + 64 * 32 + 2 * 32 * 64 + 64 * 17
+
+
+def compare_geo_chain(dev, gen):
+    """Kernels M and N (with the reduce) at the NeuS step's shapes (2^18
+    rows, the recipe's GeoNet 32 -> 64 -> 17, softplus beta 100) and M at an
+    occupancy update's 2^20 points, against their plain versions, beside
+    their bound (f32 FMAs) and autograd's create-graph chain of the same
+    function (the library yardstick: what the step ran before them)."""
+    from arcnerf_torch.ops import geo_chain
+
+    rows, stats = [], {}
+
+    def inputs(n):
+        enc = torch.randn((n, 32), generator=gen, device=dev) * 0.3
+        w1, w2 = torch.randn((32, 64), generator=gen, device=dev) * 0.3, torch.randn((64, 17), generator=gen,
+                                                                                       device=dev) * 0.2
+        return enc, w1, w2, torch.randn((n, 17), generator=gen, device=dev), torch.randn((n, 32), generator=gen,
+                                                                                         device=dev)
+
+    def autograd_fwd(enc, w1, w2):
+        x = enc.detach().requires_grad_(True)
+        a, b = w1.detach().requires_grad_(True), w2.detach().requires_grad_(True)
+        h = torch.nn.functional.softplus(100.0 * (x @ a)) / 100.0 @ b
+        (g,) = torch.autograd.grad(h[:, :1], x, torch.ones_like(h[:, :1]), create_graph=True)
+        return (x, a, b), h, g
+
+    for n, label in ((GEO_ROWS, "step"), (GEO_OCC_PTS, "occupancy update")):
+        enc, w1, w2, d_out, d_g = inputs(n)
+        count = torch.tensor(n, device=dev)
+        out, g = geo_chain.geo_chain_fwd(enc, w1, w2, 100.0, count)
+        r_out, r_g = geo_chain.geo_chain_fwd_reference(enc, w1, w2, 100.0)
+        err = max(check_scaled("geo_chain out", out, r_out, 1e-5), check_scaled("geo_chain g", g, r_g, 1e-5))
+        entry = {"max_abs_err": err, "ms": time_ms(lambda: geo_chain.geo_chain_fwd(enc, w1, w2, 100.0, count)),
+                 "plain_ms": time_ms(lambda: geo_chain.geo_chain_fwd_reference(enc, w1, w2, 100.0), 3),
+                 "graph_ms": graph_ms(lambda: geo_chain.geo_chain_fwd(enc, w1, w2, 100.0, count)),
+                 "library_ms": time_ms(lambda: autograd_fwd(enc, w1, w2), 5)}
+        suffix = add_bound(entry, [bound(n * (32 + 17 + 32) * 4, n * M_FMAS * 2, F32_FLOP_S)])
+        rows.append("M geo_chain_fwd ({}: {} rows, 32 -> 64 -> 17 f32): max abs err {:.3e} (tol 1e-5 x max|ref|), "
+                    "kernel {:.4f} ms (CUDA graph {:.4f} ms), plain {:.4f} ms, autograd create-graph chain {:.4f} "
+                    "ms, {}".format(label, n, err, entry["ms"], entry["graph_ms"], entry["plain_ms"],
+                                    entry["library_ms"], suffix))
+        if label == "step":
+            stats["M"] = entry
+        else:
+            stats["M"]["occupancy_update"] = entry
+            break
+        grads = geo_chain.geo_chain_bwd(enc, w1, w2, d_out, d_g, 100.0, count)
+        want = geo_chain.geo_chain_bwd_reference(enc, w1, w2, d_out, d_g, 100.0)
+        err = max(check_scaled("geo_chain d_enc", grads[0], want[0], 1e-5),
+                  check_scaled("geo_chain dW1", grads[1], want[1], 1e-4),
+                  check_scaled("geo_chain dW2", grads[2], want[2], 1e-4))
+        leaves, h, ag = autograd_fwd(enc, w1, w2)
+        entry = {"max_abs_err": err,
+                 "ms": time_ms(lambda: geo_chain.geo_chain_bwd(enc, w1, w2, d_out, d_g, 100.0, count)),
+                 "plain_ms": time_ms(lambda: geo_chain.geo_chain_bwd_reference(enc, w1, w2, d_out, d_g, 100.0), 3),
+                 "graph_ms": graph_ms(lambda: geo_chain.geo_chain_bwd(enc, w1, w2, d_out, d_g, 100.0, count)),
+                 "library_ms": time_ms(lambda: torch.autograd.grad([h, ag], leaves, [d_out, d_g], retain_graph=True),
+                                       5)}
+        suffix = add_bound(entry, [bound(n * (32 + 17 + 32 + 32) * 4, n * N_FMAS * 2, F32_FLOP_S)])
+        rows.append("N geo_chain_bwd + reduce ({}: {} rows; d_enc, dW1, dW2): max abs err {:.3e} (tol 1e-5 / 1e-4 x "
+                    "max|ref|), kernel {:.4f} ms (CUDA graph {:.4f} ms), plain {:.4f} ms, autograd double backward "
+                    "{:.4f} ms, {}".format(label, n, err, entry["ms"], entry["graph_ms"], entry["plain_ms"],
+                                           entry["library_ms"], suffix))
+        stats["N"] = entry
+        del leaves, h, ag, grads, want
+    return rows, stats
+
+
 def neus_train():
     """The NeuS-NGP recipe (configs/expr/synthetic_neus_ngp.yaml) for
     NEUS_STEPS eager steps through ``arcnerf_torch.train``, then a render
@@ -2060,7 +2156,7 @@ def neus_train():
     trainer = train_entry.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches("ABCDEFKLS")
+    launches = read_launches("ABCDEFKLMNS")
     losses = torch.stack(trainer.loss_history).float().cpu()
     print("NeuS-NGP {} eager steps: wall {:.1f} s, peak {:.2f} GiB, bucket {} rays; launches {}, per step {}; loss "
           "first {:.4f} last {:.4f}, all finite {}".format(
@@ -2069,7 +2165,7 @@ def neus_train():
               bool(torch.isfinite(losses).all())))
     if not torch.isfinite(losses).all():
         raise AssertionError("NeuS training: a loss is not finite")
-    for key in "BCEFKLS":
+    for key in "BCEFKLMNS":
         if launches[key] < NEUS_STEPS:
             raise AssertionError("NeuS training: kernel {} launched {} times in {} steps".format(
                 key, launches[key], NEUS_STEPS))
@@ -2162,13 +2258,15 @@ def main():
     # ------------------------------------------------------------ NeuS-NGP
     rows, neus_stats = compare_hash_dx(dev, gen)
     section_rows, section_stats = compare_sections(dev, gen)
-    for row in rows + section_rows:
+    geo_rows, geo_stats = compare_geo_chain(dev, gen)
+    for row in rows + section_rows + geo_rows:
         print(row)
     stats.update(neus_stats)
+    stats.update(geo_stats)
     stats["S"]["sections"] = section_stats["S"]
     stats["C"]["alpha_mode"], stats["F"]["alpha_mode"] = section_stats["C"], section_stats["F"]
     neus_launches = neus_train()
-    launches.update(K=neus_launches["K"], L=neus_launches["L"])
+    launches.update({k: neus_launches[k] for k in "KLMN"})
     torch.cuda.empty_cache()
 
     # the graph phase last: its draws do not always repeat on the card
@@ -2206,9 +2304,12 @@ def main():
               "none (jax.grad through the unfused element path, models/base_modules/encoding.py)"),
         "L": ("hash_dx_bwd", "arcnerf_torch/csrc/hash_dx.cu",
               "none (jax.grad of jax.grad through the unfused element path)"),
+        "M": ("geo_chain_fwd", "arcnerf_torch/csrc/geo_chain.cu",
+              "none (jax.grad of GeoNet's sdf, arcnerf_tpu/models/sdf_model.py geo_with_grad)"),
+        "N": ("geo_chain_bwd", "arcnerf_torch/csrc/geo_chain.cu", "none (jax.grad of that jax.grad)"),
     }
     kernels = [dict(name=meta[k][0], route="cuda", source=meta[k][1], replaces=meta[k][2], launches=launches[k],
-                    **stats[k]) for k in "ABCDEFGHIJSKL"]
+                    **stats[k]) for k in "ABCDEFGHIJSKLMN"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     if graph_failure is not None:

@@ -1,4 +1,4 @@
-"""arcnerf_torch's CUDA kernels (A-L, the fused sampler) vs their plain
+"""arcnerf_torch's CUDA kernels (A-N, the fused sampler) vs their plain
 PyTorch versions on the card, the autograd Functions' dispatch to them, and
 the gather/scatter wrappers' launch counters.
 
@@ -1361,7 +1361,7 @@ NEUS_ARGV = ["--model.geometry.encoder.hashmap_size", "12", "--model.geometry.en
              "--dataset.val.wh", "[16,16]", "--n_rays", "256", "--device", "cuda:0"]
 
 
-def _neus_trainer(tmp_path, name, scan_steps):
+def _neus_trainer(tmp_path, name, scan_steps, extra=()):
     import os
 
     from arcnerf_torch.trainer import ArcNerfTrainer
@@ -1370,7 +1370,7 @@ def _neus_trainer(tmp_path, name, scan_steps):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfgs = update_configs_by_dotlist(load_configs(os.path.join(root, "configs/expr/synthetic_neus_ngp.yaml")),
                                      NEUS_ARGV + ["--dir.expr_dir", str(tmp_path / name), "--progress.scan_steps",
-                                                  str(scan_steps)])
+                                                  str(scan_steps)] + list(extra))
     return ArcNerfTrainer(cfgs)
 
 
@@ -1395,6 +1395,117 @@ def test_neus_graph_strides_follow_the_eager_steps(dev, tmp_path):
     for name, v in shadow_e.items():
         rel = float((shadow_g[name] - v).norm() / v.norm().clamp_min(1e-12))
         assert rel < GRAPH_PARAM_TOL, (name, rel)
+
+
+# ------------------------------------------- M and N: the fused geometry chain
+
+def _geo_chain_inputs(dev, n, seed):
+    """enc (n, 32), W1 (32, 64), W2 (64, 17), d_out (n, 17), d_g (n, 32):
+    z spread across the softplus threshold (100 z from ~-300 to ~300)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    enc = torch.randn((n, 32), generator=gen, device=dev) * 0.3
+    w1 = torch.randn((32, 64), generator=gen, device=dev) * 0.3
+    w2 = torch.randn((64, 17), generator=gen, device=dev) * 0.2
+    return enc, w1, w2, torch.randn((n, 17), generator=gen, device=dev), torch.randn((n, 32), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("n,kept", [(1 << 18, None), (1 << 18, 200000), (5003, None), (5003, 4100), (1, None),
+                                    (1, 0), (0, None), (1 << 20, None)])
+def test_geo_chain_kernels_match_plain(dev, n, kept):
+    # kernels M, N and the reduce against their plain versions: rows within
+    # 1e-5 of the largest value (32- and 64-term f32 sums in another
+    # order), the weights' gradients within 1e-4 (sums over up to 2^18
+    # rows in another order); rows at or past the kept count read 0
+    from arcnerf_torch.ops import geo_chain
+
+    enc, w1, w2, d_out, d_g = _geo_chain_inputs(dev, n, n + 1)
+    count = None if kept is None else torch.tensor(kept, device=dev)
+    launches = (geo_chain.geo_chain_fwd.launches, geo_chain.geo_chain_bwd.launches)
+    got = list(geo_chain.geo_chain_fwd(enc, w1, w2, 100.0, count))
+    got += list(geo_chain.geo_chain_bwd(enc, w1, w2, d_out, d_g, 100.0, count))
+    torch.cuda.synchronize()
+    assert (geo_chain.geo_chain_fwd.launches, geo_chain.geo_chain_bwd.launches) == tuple(l + (n > 0) for l in launches)
+    want = list(geo_chain.geo_chain_fwd_reference(enc, w1, w2, 100.0, count))
+    want += list(geo_chain.geo_chain_bwd_reference(enc, w1, w2, d_out, d_g, 100.0, count))
+    for name, a, b, tol in zip(("out", "g", "d_enc", "dW1", "dW2"), got, want, (1e-5, 1e-5, 1e-5, 1e-4, 1e-4)):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=0, atol=tol * float(b.abs().max()) if b.numel() else 0.0, msg=name)
+    if kept is not None:
+        for a in got[:3]:
+            assert not a[kept:].any()
+
+
+def test_geo_chain_kernels_replay_from_a_cuda_graph(dev):
+    # M, N and the reduce captured at fixed sizes, the kept count read on
+    # the device: replays with new inputs and a new count equal eager calls
+    # bit for bit (no atomics)
+    from arcnerf_torch.ops import geo_chain
+
+    n = 1 << 16
+    static = list(_geo_chain_inputs(dev, n, 1))
+    count = torch.tensor(n, device=dev)
+
+    def run():
+        out, g = geo_chain.geo_chain_fwd(static[0], static[1], static[2], 100.0, count)
+        return (out, g) + tuple(geo_chain.geo_chain_bwd(*static[:3], static[3], static[4], 100.0, count))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed, kept in ((2, n), (3, 40000)):
+        for t, v in zip(static, _geo_chain_inputs(dev, n, seed)):
+            t.copy_(v)
+        count.fill_(kept)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, run()):
+            assert torch.equal(a, b)
+        assert not outs[0][kept:].any()
+
+
+def test_neus_graph_strides_launch_the_fused_geometry_chain(dev, tmp_path):
+    # the NeuS-NGP recipe at its chain's widths (16 levels x 2 features):
+    # each eager step launches M once and N once (M once more for each
+    # occupancy estimate), the captured step launches them at its warm-up
+    # step and its capture only, and the strides follow the eager steps
+    # (GRAPH_LOSS_TOL, as the other NeuS graph test)
+    from arcnerf_torch.models.neus_model import Neus
+    from arcnerf_torch.ops import geo_chain
+
+    extra = ["--model.geometry.encoder.n_levels", "16"]
+    estimates = []
+    inner = Neus.get_est_opacity
+
+    def counting(self, dt, pts):
+        estimates.append(1)
+        return inner(self, dt, pts)
+
+    Neus.get_est_opacity = counting
+    try:
+        eager, graph = _neus_trainer(tmp_path, "eager", 1, extra), _neus_trainer(tmp_path, "graph", 4, extra)
+        launches = (geo_chain.geo_chain_fwd.launches, geo_chain.geo_chain_bwd.launches)
+        counts = [int(eager.train_steps(e, 1)["n_valid_pts"]) for e in range(8)]
+        torch.cuda.synchronize()
+        assert geo_chain.geo_chain_bwd.launches == launches[1] + 8
+        assert geo_chain.geo_chain_fwd.launches == launches[0] + 8 + len(estimates)
+        launches, n_est = (geo_chain.geo_chain_fwd.launches, geo_chain.geo_chain_bwd.launches), len(estimates)
+        graph_counts = []
+        for e in range(0, 8, 4):
+            graph.train_steps(e, 4)
+            graph_counts += [int(c) for c in graph.step_graphs[(256, None)].ring["n_valid_pts"]]
+        torch.cuda.synchronize()
+    finally:
+        Neus.get_est_opacity = inner
+    assert geo_chain.geo_chain_bwd.launches == launches[1] + 2
+    assert geo_chain.geo_chain_fwd.launches == launches[0] + 2 + len(estimates) - n_est
+    assert graph_counts == counts and all(c > 0 for c in counts)
+    losses_e, losses_g = torch.stack(eager.loss_history).cpu(), torch.stack(graph.loss_history).cpu()
+    torch.testing.assert_close(losses_g, losses_e, rtol=GRAPH_LOSS_TOL, atol=0)
 
 
 # ------------------------------------------- the exact tier's frame graphs

@@ -1,11 +1,13 @@
 """NeuS-NGP on the port against the JAX package (CPU): the hash grid's
 input gradient and its double backward (against autograd of the encoding's
 plain version, in f64), GeoNet and its normal, NeuS's alpha and occupancy
-estimate, the sections of the fused sampler's stream against
+estimate and the whole model's render (at 4 levels, the autograd chain,
+and at the recipe's 16, the fused chain, with its loss gradients against
+``jax.grad``), the sections of the fused sampler's stream against
 ``Neus.handle_mid_pts`` on left-compacted rows, compositing in the alpha
 mode against a dense ``alpha_to_weights`` march, the eikonal and mask
-losses, AdamW against ``optax.adamw``, the whole model's render, and the
-normal entry point on ``configs/expr/synthetic_neus_ngp.yaml``."""
+losses, AdamW against ``optax.adamw``, and the normal entry point on
+``configs/expr/synthetic_neus_ngp.yaml``."""
 
 import os
 
@@ -28,10 +30,12 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(ROOT, "configs/expr/synthetic_neus_ngp.yaml")
-# 4 levels over T = 2^12, n_grid 16, 32 samples a ray, a budget of 2^14
-SMALL = ["--model.geometry.encoder.hashmap_size", "12", "--model.geometry.encoder.n_levels", "4",
-         "--model.obj_bound.volume.n_grid", "16", "--model.rays.n_sample", "32",
-         "--model.obj_bound.log_max_allowance", "14"]
+# the recipe's 16 levels (the GeoNet's 32 inputs: the fused chain, kernels
+# M and N on the card) over T = 2^12, n_grid 16, 32 samples a ray, a budget
+# of 2^14; SMALL: 4 levels (8 inputs: the autograd chain)
+RECIPE = ["--model.geometry.encoder.hashmap_size", "12", "--model.obj_bound.volume.n_grid", "16",
+          "--model.rays.n_sample", "32", "--model.obj_bound.log_max_allowance", "14"]
+SMALL = RECIPE + ["--model.geometry.encoder.n_levels", "4"]
 RES, LO, LEN = [3, 7, 15, 31], np.full(3, -1.0, np.float32), np.full(3, 2.0, np.float32)
 
 
@@ -114,12 +118,12 @@ def test_input_grad_block_ends_the_points_gradient():
 
 # ---------------------------------------------------------- the JAX model
 
-def jax_model_and_params(seed=0):
+def jax_model_and_params(seed=0, shape=SMALL):
     from arcnerf_tpu.models import build_model as jax_build_model
     from arcnerf_tpu.utils.cfgs import load_configs as jax_load_configs
     from arcnerf_tpu.utils.cfgs import update_configs_by_dotlist as jax_update
 
-    model = jax_build_model(jax_update(jax_load_configs(CFG), list(SMALL)))
+    model = jax_build_model(jax_update(jax_load_configs(CFG), list(shape)))
     tiny = {"rays_o": jnp.zeros((1, 2, 3)), "rays_d": jnp.ones((1, 2, 3)) / np.sqrt(3.0)}
     variables = model.init({"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)}, tiny,
                            inference_only=True, bound_state=model.init_bound_state())
@@ -139,10 +143,10 @@ def jax_model_and_params(seed=0):
     return model, jax.tree_util.tree_map_with_path(fill, variables["params"])
 
 
-def port_model(params):
+def port_model(params, shape=SMALL):
     from arcnerf_torch.models import build_model
 
-    model = build_model(update_configs_by_dotlist(load_configs(CFG), SMALL + ["--device", "cpu"]))
+    model = build_model(update_configs_by_dotlist(load_configs(CFG), shape + ["--device", "cpu"]))
     state, _ = state_from_jax(jax.tree_util.tree_map(np.asarray, params), {})
     assert set(state) == set(dict(model.named_parameters()))
     model.load_state_dict(state)
@@ -164,15 +168,25 @@ def view_rays(wh=16):
     return ds[0]["rays_o"], ds[0]["rays_d"]
 
 
-def test_geonet_sdf_feature_and_normal_match_jax():
-    # the recipe's GeoNet (weight norm, softplus 100, no bias) on the JAX
-    # weights: sdf and feature within f32 rounding, the normal (jax.grad /
-    # autograd through the hash grid's input gradient) within 1e-5
+@pytest.fixture(scope="module")
+def recipe_models():
+    """The JAX Neus and the port on its weights at the recipe's 16 levels,
+    where the port takes the fused geometry chain."""
+    from arcnerf_torch.models.sdf_model import fuses_geo_chain
+
+    model_j, params = jax_model_and_params(1, RECIPE)
+    model = port_model(params, RECIPE)
+    assert fuses_geo_chain(model.fg_model.geo_net)
+    return model_j, params, model
+
+
+def check_geonet(model_j, params, model):
+    """sdf and feature within f32 rounding of the JAX GeoNet's, the normal
+    (jax.grad / the port's input gradient through the hash grid) within
+    1e-6 of its largest value."""
     from arcnerf_tpu.models.sdf_model import geo_with_grad as jax_geo_with_grad
     from arcnerf_torch.models.sdf_model import geo_with_grad
 
-    model_j, params = jax_model_and_params(1)
-    model = port_model(params)
     pts = np.random.default_rng(2).uniform(-0.95, 0.95, size=(500, 3)).astype(np.float32)
     out_j = model_j.apply({"params": params}, jnp.asarray(pts),
                           method=lambda m, p: jax_geo_with_grad(m.fg_model.geo_net, p))
@@ -181,6 +195,18 @@ def test_geonet_sdf_feature_and_normal_match_jax():
     np.testing.assert_allclose(feat.numpy(), np.asarray(out_j[1]), rtol=1e-5, atol=1e-5)
     want = np.asarray(out_j[2])  # |normal| up to ~300 on these weights: 1e-6 of the largest
     np.testing.assert_allclose(normal.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_geonet_sdf_feature_and_normal_match_jax():
+    # the recipe's GeoNet (weight norm, softplus 100, no bias) at 4 levels
+    # (the autograd chain) on the JAX weights
+    model_j, params = jax_model_and_params(1)
+    check_geonet(model_j, params, port_model(params))
+
+
+def test_fused_geonet_sdf_feature_and_normal_match_jax(recipe_models):
+    # the same at the recipe's 16 levels: the fused chain (plain M)
+    check_geonet(*recipe_models)
 
 
 def test_geonet_init_is_the_geometric_init_under_weight_norm():
@@ -209,7 +235,12 @@ def test_sdf_to_alpha_and_the_occupancy_estimate_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
     model_j, params = jax_model_and_params(4)
-    model = port_model(params)
+    check_occupancy_estimate(model_j, params, port_model(params), rng)
+
+
+def check_occupancy_estimate(model_j, params, model, rng):
+    """The occupancy update's opacity at random points against the JAX
+    model's ``get_est_opacity``."""
     pts = rng.uniform(-0.95, 0.95, size=(400, 3)).astype(np.float32)
     dt = float(np.sqrt(3.0) * 2.0 / 32)
     want = np.asarray(model_j.apply({"params": params}, dt, jnp.asarray(pts), method="get_est_opacity"))
@@ -217,29 +248,106 @@ def test_sdf_to_alpha_and_the_occupancy_estimate_match_jax():
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4, atol=1e-6)
 
 
-def test_render_matches_jax_neus():
-    # the whole model at inference on the sphere scene's grid: the stream's
-    # sections, the normals, the radiance (bf16 kernel A's plain version),
-    # alpha, compositing and the invalid-ray fill against the JAX Neus on
-    # its (rays, n_sample) grid. 1e-3: the JAX grid also marches its
-    # padding sections (alpha ~1e-5 / cdf each, ROADMAP Queue 3) and the
-    # radiance net rounds to bf16. n_valid_pts counts sections: one more
-    # than the samples for every ray that has a sample
-    model_j, params = jax_model_and_params(0)
-    model = port_model(params)
+def test_fused_occupancy_estimate_matches_jax(recipe_models):
+    check_occupancy_estimate(*recipe_models, np.random.default_rng(3))
+
+
+def check_render(model_j, params, model, unpadded=False):
+    """The whole model at inference on the sphere scene's grid: the
+    stream's sections, the normals, the radiance (bf16 kernel A's plain
+    version), alpha, compositing and the invalid-ray fill against the JAX
+    Neus on its (rays, n_sample) grid. 2e-3: the JAX grid also marches its
+    padding sections (alpha ~1e-5 / cdf each, ROADMAP Queue 3) and the
+    radiance net rounds to bf16. n_valid_pts counts sections: one more
+    than the samples for every ray that has a sample. ``unpadded``: only
+    the rays whose padding sections carry under 1e-4 of the JAX grid's
+    weight (a padding section sits at its ray's last mid point; the count
+    takes in the last real section's weight too, so it may leave out more
+    rays, never fewer), at least 7 in 8."""
     bound_np = sphere_bound()
     ro, rd = view_rays()
     feed = {"rays_o": ro[None], "rays_d": rd[None]}
     out_j = model_j.apply({"params": params}, {k: jnp.asarray(v) for k, v in feed.items()}, inference_only=True,
-                          bound_state=jax.tree_util.tree_map(jnp.asarray, bound_np))
+                          get_progress=unpadded, bound_state=jax.tree_util.tree_map(jnp.asarray, bound_np))
     _, bound = state_from_jax({}, bound_np)
     with torch.inference_mode():
         out = model({k: torch.from_numpy(v) for k, v in feed.items()}, inference_only=True, bound_state=bound)
+    rays = np.ones(ro.shape[0], dtype=bool)
+    if unpadded:
+        mid, weights = np.asarray(out_j["progress_zvals"][0]), np.asarray(out_j["progress_weights"][0])
+        rays = (weights * (mid == mid[:, -1:])).sum(1) < 1e-4
+        assert rays.mean() >= 7 / 8 and (np.asarray(out_j["mask"][0])[rays] > 0.5).sum() > 20
     for k in ("rgb", "depth", "mask", "normal"):
-        np.testing.assert_allclose(out[k][0].numpy(), np.asarray(out_j[k][0]), rtol=0, atol=2e-3, err_msg=k)
+        np.testing.assert_allclose(out[k][0].numpy()[rays], np.asarray(out_j[k][0])[rays], rtol=0, atol=2e-3,
+                                   err_msg=k)
     assert 0.1 < float(out["mask"].mean()) < 0.9
     n_rays_hit = int(np.asarray(out_j["mask"][0] > 0).sum())
     assert int(out["n_valid_pts"]) > int(out_j["n_valid_pts"]) and n_rays_hit > 0
+
+
+def test_render_matches_jax_neus():
+    model_j, params = jax_model_and_params(0)
+    check_render(model_j, params, port_model(params))
+
+
+def test_fused_render_matches_jax_neus(recipe_models):
+    # at the recipe's 16 levels the field is rougher: rays end inside the
+    # surface, where the JAX grid's padding sections take up to 5e-2 of a
+    # ray's weight, on the fused and the autograd chain alike: those rays
+    # are left out
+    check_render(*recipe_models, unpadded=True)
+
+
+def test_fused_neus_loss_gradients_match_jax(recipe_models):
+    # the NeuS loss's terms on given sections at the recipe's 16 levels, the
+    # chain fused (plain M, then N in the backward): alpha (NeuS eq. 13
+    # from the sdf, the normal's slope and s = exp(speed inv_s)), weights
+    # on the feature and the normal (what the radiance net reads) and the
+    # eikonal loss. Each leaf's gradient (table, both layers and their
+    # scales, inv_s) against jax.grad of the same loss on the JAX Neus,
+    # within 1e-5 of its largest value
+    from arcnerf_tpu.models.neus_model import sdf_to_alpha as jax_sdf_to_alpha
+    from arcnerf_tpu.models.sdf_model import geo_with_grad as jax_geo_with_grad
+    from arcnerf_torch.models.neus_model import sdf_to_alpha
+    from arcnerf_torch.models.sdf_model import geo_with_grad
+
+    model_j, params, model = recipe_models
+    rng = np.random.default_rng(13)
+    n = 400
+    pts = rng.uniform(-0.95, 0.95, size=(n, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3))
+    dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
+    dist = rng.uniform(0.005, 0.02, size=n).astype(np.float32)
+    c_alpha, c_feat, c_normal = (rng.normal(size=s).astype(np.float32) for s in (n, (n, 16), (n, 3)))
+
+    def jax_loss(p):
+        def terms(m):
+            sdf, feat, normal = jax_geo_with_grad(m.fg_model.geo_net, jnp.asarray(pts))
+            slope = -jax.nn.relu(-jnp.sum(dirs * normal, axis=-1))
+            zvals = jnp.stack([jnp.zeros(n), jnp.asarray(dist)], axis=1)
+            alpha = jax_sdf_to_alpha(sdf, zvals, slope[:, None], m.fg_model.forward_scale())[:, 0]
+            eikonal = jnp.mean((jnp.linalg.norm(normal, axis=-1) - 1.0) ** 2)
+            return (alpha * c_alpha).sum() + (feat * c_feat).sum() + (normal * c_normal).sum() + 0.1 * eikonal
+
+        return model_j.apply({"params": p}, method=terms)
+
+    want, _ = state_from_jax(jax.tree_util.tree_map(np.asarray, jax.grad(jax_loss)(params)), {})
+    fg = model.fg_model
+    model.zero_grad()
+    sdf, feat, normal = geo_with_grad(fg.geo_net, torch.from_numpy(pts), create_graph=True)
+    slope = -torch.relu(-(torch.from_numpy(dirs) * normal).sum(-1))
+    alpha = sdf_to_alpha(sdf[:, 0], torch.from_numpy(dist), slope, fg.forward_scale())
+    eikonal = ((normal.norm(dim=-1) - 1.0) ** 2).mean()
+    loss = ((alpha * torch.from_numpy(c_alpha)).sum() + (feat * torch.from_numpy(c_feat)).sum()
+            + (normal * torch.from_numpy(c_normal)).sum() + 0.1 * eikonal)
+    loss.backward()
+    got = {name: p.grad for name, p in model.named_parameters() if p.grad is not None}
+    assert set(got) == {"fg_model.inv_s"} | {"fg_model.geo_net." + k for k in
+                                             ("fc_0", "wn_0", "fc_1", "wn_1", "encoder.embeddings")}
+    for name, grad in got.items():
+        w = want[name]
+        assert float(w.abs().max()) > 0, name
+        torch.testing.assert_close(grad, w, rtol=0, atol=1e-5 * float(w.abs().max()), msg=name)
 
 
 # -------------------------------------------------------------- the sections
