@@ -366,13 +366,21 @@ int march_mode(bool add_inf_z, bool alpha) {
     return alpha ? 2 : (add_inf_z ? 1 : 0);
 }
 
+// tail (n_rays,) f32 or none: the window tail of the sigma mode (the z each
+// segment's last delta reaches where it is finite).
 std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma, const Tensor& rgb, const Tensor& z,
                                                              const Tensor& off, const Tensor& cnt, bool add_inf_z,
                                                              const std::optional<Tensor>& bkg, bool white_bkg,
-                                                             int64_t group, bool alpha) {
+                                                             int64_t group, bool alpha,
+                                                             const std::optional<Tensor>& tail) {
     const char* name = "segment_march";
     const int64_t n_rays = require_march_inputs(name, sigma, rgb, z, off, cnt, bkg);
     TORCH_CHECK_VALUE(group == 32 || group == 8, name, ": kernel C takes groups of 32 or 8 lanes a ray, not ", group);
+    if (tail) {
+        TORCH_CHECK_VALUE(!alpha, name, ": the window tail takes the sigma mode");
+        require(name, *tail, ScalarType::Float, z);
+        require_numel(name, *tail, n_rays, "tail");
+    }
     c10::cuda::CUDAGuard guard(z.device());
     Tensor out_rgb = at::empty({n_rays, 3}, z.options());
     Tensor depth = at::empty({n_rays}, z.options()), mask = at::empty({n_rays}, z.options());
@@ -381,7 +389,8 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> segment_march_fwd(const Tensor& sigma
         check_status(name, arcnerf_segment_march_fwd(sigma.data_ptr(), rgb.data_ptr(), z.data_ptr(), off.data_ptr(),
                                                      cnt.data_ptr(), static_cast<int>(n_rays), z.numel(),
                                                      march_mode(add_inf_z, alpha), bkg ? bkg->data_ptr() : nullptr,
-                                                     white_bkg ? 1 : 0, static_cast<int>(group), out_rgb.data_ptr(),
+                                                     white_bkg ? 1 : 0, static_cast<int>(group),
+                                                     tail ? tail->data_ptr() : nullptr, out_rgb.data_ptr(),
                                                      depth.data_ptr(), mask.data_ptr(), trans_end.data_ptr(),
                                                      stream_of(z)));
     }
@@ -531,17 +540,26 @@ int64_t require_ladder(const char* name, const Tensor& rays_o, const Tensor& ray
     return n;
 }
 
+// The window mode (an offset, none outside it) takes a cap, and samples.
+void require_window(const char* name, const std::optional<int64_t>& offset, int64_t cap, bool sections) {
+    if (!offset) return;
+    require_int(name, *offset, "offset");
+    TORCH_CHECK_VALUE(cap > 0 && !sections, name, ": a window takes a cap, and samples");
+}
+
 // -> off, cnt (n,) int64, n_valid () int64, ray_has (n,) bool (the ray hits
 // the box and keeps a sample), and for the write: near_far (n, 2) f32,
 // clamp (n, 2) f32 (the jitter's clamp; (0, 2) without rand) and first_z
-// (1,) f32.
-std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> sample_count(
+// (1,) f32; then each ray's count (n,) int32, the window's (n_win_pts) in the
+// window mode (an offset: the samples of rank in (offset, offset + cap])).
+std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> sample_count(
         const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield, const std::optional<Tensor>& rand,
         int64_t n_pts, double fix_t, const std::vector<float>& box, const std::vector<float>& inv_voxel, int64_t cap,
-        int64_t budget, bool sections) {
+        int64_t budget, bool sections, std::optional<int64_t> offset) {
     const char* name = "sample_count";
     const int64_t n = require_ladder(name, rays_o, rays_d, bitfield, rand, n_pts, box, inv_voxel);
     require_int(name, cap, "cap");
+    require_window(name, offset, cap, sections);
     c10::cuda::CUDAGuard guard(rays_o.device());
     const auto f32 = rays_o.options(), i64 = f32.dtype(ScalarType::Long);
     Tensor tot = at::empty({n}, f32.dtype(ScalarType::Int)), near_far = at::empty({n, 2}, f32);
@@ -552,21 +570,21 @@ std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> sample_count(
                                             bitfield.data_ptr(), static_cast<int>(bitfield.size(0)), box.data(),
                                             inv_voxel.data(), rand ? rand->data_ptr() : nullptr,
                                             static_cast<int>(n_pts), static_cast<float>(fix_t), static_cast<int>(cap),
-                                            budget, sections ? 1 : 0, tot.data_ptr(), near_far.data_ptr(),
-                                            clamp.data_ptr(),
-                                            first_z.data_ptr(), ray_has.data_ptr(), off.data_ptr(), cnt.data_ptr(),
-                                            n_valid.data_ptr(), stream_of(rays_o)));
-    return {off, cnt, n_valid, ray_has, near_far, clamp, first_z};
+                                            static_cast<int>(offset.value_or(0)), budget, sections ? 1 : 0,
+                                            tot.data_ptr(), near_far.data_ptr(), clamp.data_ptr(), first_z.data_ptr(),
+                                            ray_has.data_ptr(), off.data_ptr(), cnt.data_ptr(), n_valid.data_ptr(),
+                                            stream_of(rays_o)));
+    return {off, cnt, n_valid, ray_has, near_far, clamp, first_z, tot};
 }
 
 // The same ladder and sample_count's outputs -> the stream: z (budget,), pts
-// and dirs (budget, 3) f32, and with sections len (budget,) f32 (else none).
-std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>> sample_write(const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield,
-                                                const std::optional<Tensor>& rand, int64_t n_pts, double fix_t,
-                                                const std::vector<float>& box, const std::vector<float>& inv_voxel,
-                                                const Tensor& near_far, const Tensor& clamp, const Tensor& first_z,
-                                                const Tensor& off, const Tensor& cnt, const Tensor& n_valid,
-                                                int64_t budget, bool sections, int64_t cap) {
+// and dirs (budget, 3) f32, with sections len (budget,) f32 (else none), and
+// in the window mode (the count's offset) tail (n,) f32 (else none).
+std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>, std::optional<Tensor>> sample_write(
+        const Tensor& rays_o, const Tensor& rays_d, const Tensor& bitfield, const std::optional<Tensor>& rand,
+        int64_t n_pts, double fix_t, const std::vector<float>& box, const std::vector<float>& inv_voxel,
+        const Tensor& near_far, const Tensor& clamp, const Tensor& first_z, const Tensor& off, const Tensor& cnt,
+        const Tensor& n_valid, int64_t budget, bool sections, int64_t cap, std::optional<int64_t> offset) {
     const char* name = "sample_write";
     const int64_t n = require_ladder(name, rays_o, rays_d, bitfield, rand, n_pts, box, inv_voxel);
     require(name, near_far, ScalarType::Float, rays_o);
@@ -582,20 +600,23 @@ std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>> sample_write(const Ten
     require_numel(name, cnt, n, "cnt");
     require_numel(name, n_valid, 1, "n_valid");
     require_int(name, cap, "cap");
+    require_window(name, offset, cap, sections);
     c10::cuda::CUDAGuard guard(rays_o.device());
     Tensor z = at::empty({budget}, rays_o.options());
     Tensor pts = at::empty({budget, 3}, rays_o.options()), dirs = at::empty({budget, 3}, rays_o.options());
-    std::optional<Tensor> len;
+    std::optional<Tensor> len, tail;
     if (sections) len = at::empty({budget}, rays_o.options());
+    if (offset) tail = at::empty({n}, rays_o.options());
     check_status(name, arcnerf_sample_write(rays_o.data_ptr(), rays_d.data_ptr(), static_cast<int>(n),
                                             bitfield.data_ptr(), static_cast<int>(bitfield.size(0)), box.data(),
                                             inv_voxel.data(), rand ? rand->data_ptr() : nullptr,
                                             static_cast<int>(n_pts), static_cast<float>(fix_t), near_far.data_ptr(),
                                             clamp.data_ptr(), first_z.data_ptr(), off.data_ptr(), cnt.data_ptr(),
-                                            n_valid.data_ptr(), budget, static_cast<int>(cap), z.data_ptr(),
-                                            pts.data_ptr(), dirs.data_ptr(), len ? len->data_ptr() : nullptr,
-                                            stream_of(rays_o)));
-    return {z, pts, dirs, len};
+                                            n_valid.data_ptr(), budget, static_cast<int>(cap),
+                                            static_cast<int>(offset.value_or(0)), z.data_ptr(), pts.data_ptr(),
+                                            dirs.data_ptr(), len ? len->data_ptr() : nullptr,
+                                            tail ? tail->data_ptr() : nullptr, stream_of(rays_o)));
+    return {z, pts, dirs, len, tail};
 }
 
 }  // namespace
@@ -617,7 +638,7 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
           py::arg("log2_table"), py::arg("aabb_min"), py::arg("aabb_len"), py::arg("variant"), py::arg("read_bf16"));
     m.def("segment_march_fwd", &segment_march_fwd, py::arg("sigma"), py::arg("rgb"), py::arg("z"), py::arg("off"),
           py::arg("cnt"), py::arg("add_inf_z"), py::arg("bkg"), py::arg("white_bkg"), py::arg("group") = 32,
-          py::arg("alpha") = false);
+          py::arg("alpha") = false, py::arg("tail") = py::none());
     m.def("segment_march_bwd", &segment_march_bwd, py::arg("sigma"), py::arg("rgb"), py::arg("z"), py::arg("off"),
           py::arg("cnt"), py::arg("g_rgb"), py::arg("g_depth"), py::arg("g_mask"), py::arg("add_inf_z"),
           py::arg("bkg"), py::arg("white_bkg"), py::arg("alpha") = false);
@@ -628,11 +649,11 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
           py::arg("n_feat"));
     m.def("sample_count", &sample_count, py::arg("rays_o"), py::arg("rays_d"), py::arg("bitfield"), py::arg("rand"),
           py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("cap"), py::arg("budget"),
-          py::arg("sections") = false);
+          py::arg("sections") = false, py::arg("offset") = py::none());
     m.def("sample_write", &sample_write, py::arg("rays_o"), py::arg("rays_d"), py::arg("bitfield"), py::arg("rand"),
           py::arg("n_pts"), py::arg("fix_t"), py::arg("box"), py::arg("inv_voxel"), py::arg("near_far"),
           py::arg("clamp"), py::arg("first_z"), py::arg("off"), py::arg("cnt"), py::arg("n_valid"),
-          py::arg("budget"), py::arg("sections") = false, py::arg("cap") = 0);
+          py::arg("budget"), py::arg("sections") = false, py::arg("cap") = 0, py::arg("offset") = py::none());
     m.def("geo_chain_fwd", &geo_chain_fwd, py::arg("enc"), py::arg("w1"), py::arg("w2"), py::arg("n_valid"),
           py::arg("beta"));
     m.def("geo_chain_bwd", &geo_chain_bwd, py::arg("enc"), py::arg("w1"), py::arg("w2"), py::arg("d_out"),

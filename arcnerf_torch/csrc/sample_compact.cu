@@ -39,6 +39,14 @@
 //   has length 0 there. A row holds the section's
 //   mid point (z, the point) and its length (len); the budget applies to
 //   sections, and padding rows have length 0.
+// - in the window mode (the windowed tier's passes, an offset with a
+//   cap): the valid samples of rank in (offset, offset + cap] a ray,
+//   _cap_pts_per_ray with its offset; the count is the window's
+//   (n_win_pts), and each ray with a sample in the stream gets its tail:
+//   the z of its next valid sample after the last one in the stream (past
+//   the window, or a window sample the budget dropped), +inf where there
+//   is none, so that kernel C gives the last sample the dense march's
+//   delta (scattered_deltas on the pre-cap mask) and windows telescope.
 //
 // What bounds it on the H100: in a training step (16384 rays x 512 slots,
 // budget 2^18) the jitter read once (33.5 MB) and the stream written
@@ -52,7 +60,8 @@
 //    are coalesced; each lane recomputes its slot's z, duplicate test,
 //    jitter and voxel from the ray alone, and __ballot_sync / __popc count
 //    the valid ones. The walk ends where the ladder reaches far (every
-//    later slot repeats it) or the cap is met. With jitter a first walk,
+//    later slot repeats it) or the cap (offset + cap in the window mode;
+//    the offset is 0 outside it) is met. With jitter a first walk,
 //    arithmetic only, counts the non-duplicate slots for the clamp.
 // 2. scan (sample_scan_kernel): one block scans the counts into off, cnt
 //    = min(max(budget - off, 0), count) and the total, all on the device,
@@ -65,9 +74,11 @@
 //    rows. In the sections mode each valid sample writes the section that
 //    ends at it, its start z from the next lower valid lane by a shuffle
 //    (or carried from the walk's earlier steps), and lane 0 writes the
-//    ray's last two sections after the walk.
-// The mode is a template parameter: the samples mode compiles as it did
-// before the sections mode existed.
+//    ray's last two sections after the walk. In the window mode the walk
+//    skips the first `offset` valid samples and ends at the tail (rank
+//    offset + cnt + 1), which a ballot finds and lane 0 writes.
+// The write's modes are template parameters: the samples mode compiles as
+// it did before the sections and window modes existed.
 // Nothing is read back to the host, and the outputs have fixed sizes (the
 // budget), so a training step captured as a CUDA graph replays it.
 // Every rounding is the plain version's as PyTorch's CUDA operators give
@@ -183,7 +194,7 @@ __device__ __forceinline__ bool sample_at(const Ladder& p, const Ray& r, int j, 
 }
 
 template <bool Sections>
-__global__ void __launch_bounds__(kThreads) sample_count_kernel(Ladder p, int cap, int* __restrict__ tot,
+__global__ void __launch_bounds__(kThreads) sample_count_kernel(Ladder p, int cap, int offset, int* __restrict__ tot,
                                                                 float2* __restrict__ near_far,
                                                                 float2* __restrict__ clamp,
                                                                 float* __restrict__ first_z,
@@ -212,9 +223,9 @@ __global__ void __launch_bounds__(kThreads) sample_count_kernel(Ladder p, int ca
         float z, xyz[3];
         const bool valid = j < p.n_pts && sample_at(p, r, j, z, xyz);
         count += __popc(__ballot_sync(kFull, valid));
-        if ((cap > 0 && count >= cap) || at_far(r, p.fix_t, min(base + 31, p.n_pts - 1))) break;
+        if ((cap > 0 && count >= offset + cap) || at_far(r, p.fix_t, min(base + 31, p.n_pts - 1))) break;
     }
-    if (cap > 0) count = min(count, cap);
+    if (cap > 0) count = min(max(count - offset, 0), cap);  // the window's samples
     if (lane != 0) return;
     tot[ray] = Sections ? (count > 0 ? min(count + 1, p.n_pts) : 0) : count;
     ray_has[ray] = hit && count > 0;
@@ -310,13 +321,13 @@ __device__ __forceinline__ void write_section(const Ray& r, int64_t row, float z
     }
 }
 
-template <bool Sections>
+template <bool Sections, bool Window>
 __global__ void __launch_bounds__(kThreads) sample_write_kernel(
         Ladder p, const float2* __restrict__ near_far, const float2* __restrict__ clamp,
         const float* __restrict__ first_z,
         const int64_t* __restrict__ off, const int64_t* __restrict__ cnt, const int64_t* __restrict__ n_valid,
-        int64_t budget, int ray_blocks, int cap, float* __restrict__ z_out, float* __restrict__ pts,
-        float* __restrict__ dirs, float* __restrict__ len) {
+        int64_t budget, int ray_blocks, int cap, int offset, float* __restrict__ z_out, float* __restrict__ pts,
+        float* __restrict__ dirs, float* __restrict__ len, float* __restrict__ tail) {
     if (static_cast<int>(blockIdx.x) >= ray_blocks) {
         // the padding rows [min(n_valid, budget), budget): ray 0's first sample
         const int64_t from = *n_valid < budget ? *n_valid : budget;
@@ -343,7 +354,13 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
     const int ray = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
     if (ray >= p.n_rays) return;
     const int64_t c = cnt[ray];
-    if (c <= 0) return;
+    const float inf = __int_as_float(0x7f800000);
+    if (c <= 0) {
+        if constexpr (Window) {
+            if (lane == 0) tail[ray] = inf;
+        }
+        return;
+    }
     const int64_t o = off[ray];
     Ray r = load_ray(p, ray);
     const float2 nf = near_far[ray];
@@ -357,6 +374,7 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
     int64_t rank = 0;
     float prev_z = 0.f, first = 0.f;  // sections: the last valid z of the steps before, and the ray's first
     const int64_t last = cap > 0 ? cap : p.n_pts;  // sections: the ray's samples end at the cap
+    float tail_z = inf;  // window: the z of the valid sample of rank offset + c + 1 (0-based offset + c)
     for (int base = 0; base < p.n_pts; base += 32) {
         const int j = base + lane;
         float z = 0.f, xyz[3];
@@ -379,6 +397,20 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
                 if (rank == 0) first = z_low;
                 prev_z = z_top;
             }
+        } else if constexpr (Window) {
+            // the first `offset` valid samples lie before the window; every
+            // lane votes and shuffles for the tail, so the ballot is the warp's
+            if (valid && mine >= offset && mine < offset + c) {
+                const int64_t row = o + mine - offset;
+                z_out[row] = z;
+                for (int k = 0; k < 3; ++k) {
+                    pts[3 * row + k] = xyz[k];
+                    dirs[3 * row + k] = r.d[k];
+                }
+            }
+            const unsigned at = __ballot_sync(kFull, valid && mine == offset + c);
+            const float z_at = __shfl_sync(kFull, z, at ? __ffs(at) - 1 : 0);
+            if (at) tail_z = z_at;
         } else if (valid && mine < c) {
             const int64_t row = o + mine;
             z_out[row] = z;
@@ -388,7 +420,11 @@ __global__ void __launch_bounds__(kThreads) sample_write_kernel(
             }
         }
         rank += __popc(ballot);
-        if (rank >= (Sections ? min(c + 1, last) : c) || at_far(r, p.fix_t, min(base + 31, p.n_pts - 1))) break;
+        const int64_t end = Sections ? min(c + 1, last) : (Window ? offset + c + 1 : c);
+        if (rank >= end || at_far(r, p.fix_t, min(base + 31, p.n_pts - 1))) break;
+    }
+    if constexpr (Window) {
+        if (lane == 0) tail[ray] = tail_z;
     }
     if constexpr (Sections) {
         // the last two sections: to z_(c-1) + 2 sd, then of length 0 there. A
@@ -433,18 +469,20 @@ bool bad_ladder(int n_rays, int n_grid, int n_pts, long long budget) {
 // scan: tot (n_rays,) int32 scratch, near_far (n_rays, 2) f32, clamp
 // (n_rays, 2) f32 (written with rand), first_z (1,) f32, ray_has (n_rays,)
 // bool (the ray hits the box and keeps a sample), off, cnt (n_rays,) int64,
-// n_valid () int64.
+// n_valid () int64; tot holds each ray's count (the window's, n_win_pts,
+// in the window mode, which takes a cap and samples; outside it offset 0).
 extern "C" int arcnerf_sample_count(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield,
                                     int n_grid, const float* box, const float* inv_voxel, const void* rand, int n_pts,
-                                    float fix_t, int cap, long long budget, int sections, void* tot, void* near_far,
-                                    void* clamp, void* first_z, void* ray_has, void* off, void* cnt, void* n_valid,
-                                    void* stream) {
-    if (bad_ladder(n_rays, n_grid, n_pts, budget) || cap < 0) return ARCNERF_BAD_ARGUMENT;
+                                    float fix_t, int cap, int offset, long long budget, int sections, void* tot,
+                                    void* near_far, void* clamp, void* first_z, void* ray_has, void* off, void* cnt,
+                                    void* n_valid, void* stream) {
+    if (bad_ladder(n_rays, n_grid, n_pts, budget) || cap < 0 || offset < 0 || (offset > 0 && (cap == 0 || sections)))
+        return ARCNERF_BAD_ARGUMENT;
     const Ladder p = make_ladder(rays_o, rays_d, n_rays, bitfield, n_grid, box, inv_voxel, rand, n_pts, fix_t);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
     auto* kernel = sections ? sample_count_kernel<true> : sample_count_kernel<false>;
-    kernel<<<blocks, kThreads, 0, s>>>(p, cap, static_cast<int*>(tot), static_cast<float2*>(near_far),
+    kernel<<<blocks, kThreads, 0, s>>>(p, cap, offset, static_cast<int*>(tot), static_cast<float2*>(near_far),
                                        static_cast<float2*>(clamp), static_cast<float*>(first_z),
                                        static_cast<bool*>(ray_has));
     const cudaError_t err = cudaGetLastError();
@@ -458,23 +496,28 @@ extern "C" int arcnerf_sample_count(const void* rays_o, const void* rays_d, int 
 // The same ladder, the count's near_far, clamp and first_z, and the scan's
 // off, cnt, n_valid -> the stream: z (budget,), pts and dirs (budget, 3) f32,
 // and in the sections mode (len non-null) len (budget,) f32, a ray's samples
-// ending at the count's cap (0: none).
+// ending at the count's cap (0: none); in the window mode (tail non-null,
+// with the count's offset) tail (n_rays,) f32, +inf where a ray has none;
+// outside it the offset is 0.
 extern "C" int arcnerf_sample_write(const void* rays_o, const void* rays_d, int n_rays, const void* bitfield,
                                     int n_grid, const float* box, const float* inv_voxel, const void* rand, int n_pts,
                                     float fix_t, const void* near_far, const void* clamp, const void* first_z,
                                     const void* off, const void* cnt, const void* n_valid, long long budget, int cap,
-                                    void* z, void* pts, void* dirs, void* len, void* stream) {
-    if (cap < 0) return ARCNERF_BAD_ARGUMENT;
+                                    int offset, void* z, void* pts, void* dirs, void* len, void* tail, void* stream) {
+    if (cap < 0 || offset < 0 || (tail == nullptr ? offset != 0 : (cap == 0 || len != nullptr)))
+        return ARCNERF_BAD_ARGUMENT;
     if (bad_ladder(n_rays, n_grid, n_pts, budget)) return ARCNERF_BAD_ARGUMENT;
     const Ladder p = make_ladder(rays_o, rays_d, n_rays, bitfield, n_grid, box, inv_voxel, rand, n_pts, fix_t);
     const int ray_blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
     const long long pad_rounds = (budget + kThreads - 1) / kThreads;
     const int pad_blocks = pad_rounds < kPadBlocks ? static_cast<int>(pad_rounds) : kPadBlocks;
-    auto* kernel = len != nullptr ? sample_write_kernel<true> : sample_write_kernel<false>;
+    auto* kernel = len != nullptr    ? sample_write_kernel<true, false>
+                   : tail != nullptr ? sample_write_kernel<false, true>
+                                     : sample_write_kernel<false, false>;
     kernel<<<ray_blocks + pad_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         p, static_cast<const float2*>(near_far), static_cast<const float2*>(clamp), static_cast<const float*>(first_z),
         static_cast<const int64_t*>(off), static_cast<const int64_t*>(cnt), static_cast<const int64_t*>(n_valid),
-        budget, ray_blocks, cap, static_cast<float*>(z), static_cast<float*>(pts), static_cast<float*>(dirs),
-        static_cast<float*>(len));
+        budget, ray_blocks, cap, offset, static_cast<float*>(z), static_cast<float*>(pts), static_cast<float*>(dirs),
+        static_cast<float*>(len), static_cast<float*>(tail));
     return static_cast<int>(cudaGetLastError());
 }

@@ -54,7 +54,9 @@ __device__ __forceinline__ float group_sum(unsigned mask, float v) {
 // or past `end` are outside the segment and come out as alpha 0, o 1). The
 // delta to the next sample of the segment comes from the lane above by a
 // shuffle, and from one load at the chunk's edge; deltas below 1e-5 are
-// crushed to 0, the segment's last one is 1e10 under add_inf_z, else 0.
+// crushed to 0, the segment's last one is 1e10 under add_inf_z, else 0. With
+// Tail (kernel C on a window of the windowed tier) the segment's last delta
+// reaches the ray's tail z where it is finite, crushed as the others.
 struct Sample {
     float z, s_raw, delta, ex, alpha, o;
 };
@@ -73,9 +75,9 @@ __device__ __forceinline__ Loaded load_row(const float* __restrict__ sigma, cons
     return {in ? z[i] : 0.f, lane == W - 1 && i + 1 < end ? z[i + 1] : 0.f, in ? sigma[i] : 0.f};
 }
 
-template <int W, bool Alpha = false>
+template <int W, bool Alpha = false, bool Tail = false>
 __device__ __forceinline__ Sample finish_sample(Loaded r, int64_t i, int64_t end, int add_inf_z, unsigned mask,
-                                                int lane) {
+                                                int lane, float tail = 0.f) {
     Sample p;
     const bool in = i < end;
     p.z = r.z;
@@ -91,6 +93,9 @@ __device__ __forceinline__ Sample finish_sample(Loaded r, int64_t i, int64_t end
     if (lane == W - 1) z_next = r.z_edge;
     if (i + 1 < end) {
         const float d = __fsub_rn(z_next, p.z);
+        p.delta = fabsf(d) < 1e-5f ? 0.f : d;
+    } else if (Tail && tail < __int_as_float(0x7f800000)) {
+        const float d = __fsub_rn(tail, p.z);
         p.delta = fabsf(d) < 1e-5f ? 0.f : d;
     } else {
         p.delta = add_inf_z ? 1e10f : 0.f;

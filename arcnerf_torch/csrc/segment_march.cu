@@ -40,8 +40,12 @@
 // contracting into FMAs, so tests/test_torch_march_numerics.py models the
 // order of every rounding.
 // The alpha mode (mode 2, for an SDF's sections) reads each row's alpha
-// from sigma and composites it as it is; it is a template parameter, so the
-// sigma mode compiles as before.
+// from sigma and composites it as it is. The tail mode (a per-ray tail z,
+// for the windowed tier's windows) gives each segment's last sample its
+// delta to the ray's tail where that is finite, as the dense march on the
+// pre-cap mask does, so consecutive windows telescope; elsewhere the tail
+// rule of the mode holds. Both are template parameters, so the sigma mode
+// compiles as before.
 
 #include "seg_scan.cuh"
 
@@ -54,12 +58,13 @@ __device__ __forceinline__ float3 load_rgb(const float* __restrict__ rgb, int64_
     return i < end ? make_float3(rgb[3 * i + 0], rgb[3 * i + 1], rgb[3 * i + 2]) : make_float3(0.f, 0.f, 0.f);
 }
 
-template <int W, bool Alpha>
+template <int W, bool Alpha, bool Tail>
 __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
         const float* __restrict__ sigma, const float* __restrict__ rgb, const float* __restrict__ z,
         const int64_t* __restrict__ off, const int64_t* __restrict__ cnt, int n_rays, int64_t k_total,
-        int add_inf_z, const float* __restrict__ bkg, int white_bkg, float* __restrict__ out_rgb,
-        float* __restrict__ out_depth, float* __restrict__ out_mask, float* __restrict__ out_trans_end) {
+        int add_inf_z, const float* __restrict__ bkg, int white_bkg, const float* __restrict__ tail,
+        float* __restrict__ out_rgb, float* __restrict__ out_depth, float* __restrict__ out_mask,
+        float* __restrict__ out_trans_end) {
     const int lane = threadIdx.x % W;
     const int64_t ray = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / W;
     // a group leaves as a whole: its lanes share the ray
@@ -70,7 +75,8 @@ __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
     const unsigned mask = seg_scan::group_mask<W>();
 
     float carry = 1.f, sw = 0.f, swz = 0.f, sr = 0.f, sg = 0.f, sb = 0.f;
-    if (start < end) {  // an empty ray skips the walk and the group's sums
+    if (start < end) {
+        const float t_ray = Tail ? tail[ray] : 0.f;  // an empty ray skips the walk and the group's sums
         // the chunk at `base` in registers, the next one's loads in flight
         seg_scan::Loaded row = seg_scan::load_row<W>(sigma, z, start + lane, end, lane);
         float3 col = load_rgb(rgb, start + lane, end);
@@ -82,7 +88,8 @@ __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
                 row = seg_scan::load_row<W>(sigma, z, i + W, end, lane);
                 col = load_rgb(rgb, i + W, end);
             }
-            const seg_scan::Sample p = seg_scan::finish_sample<W, Alpha>(here, i, end, add_inf_z, mask, lane);
+            const seg_scan::Sample p = seg_scan::finish_sample<W, Alpha, Tail>(here, i, end, add_inf_z, mask, lane,
+                                                                              t_ray);
             const float incl = seg_scan::product_scan<W>(mask, lane, p.o);
             const float excl = __shfl_up_sync(mask, incl, 1, W);
             const float t = lane == 0 ? carry : __fmul_rn(carry, excl);
@@ -124,18 +131,22 @@ __global__ void __launch_bounds__(kThreads) segment_march_fwd_kernel(
 
 template <int W>
 void launch(const float* sigma, const float* rgb, const float* z, const int64_t* off, const int64_t* cnt, int n_rays,
-            int64_t k_total, int mode, const float* bkg, int white_bkg, float* out_rgb, float* out_depth,
-            float* out_mask, float* out_trans_end, cudaStream_t s) {
+            int64_t k_total, int mode, const float* bkg, int white_bkg, const float* tail, float* out_rgb,
+            float* out_depth, float* out_mask, float* out_trans_end, cudaStream_t s) {
     constexpr int kRaysPerBlock = kThreads / W;
     const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
     if (mode == 2) {
-        segment_march_fwd_kernel<W, true><<<blocks, kThreads, 0, s>>>(sigma, rgb, z, off, cnt, n_rays, k_total, 0, bkg,
-                                                                      white_bkg, out_rgb, out_depth, out_mask,
-                                                                      out_trans_end);
+        segment_march_fwd_kernel<W, true, false><<<blocks, kThreads, 0, s>>>(
+            sigma, rgb, z, off, cnt, n_rays, k_total, 0, bkg, white_bkg, nullptr, out_rgb, out_depth, out_mask,
+            out_trans_end);
+    } else if (tail != nullptr) {
+        segment_march_fwd_kernel<W, false, true><<<blocks, kThreads, 0, s>>>(
+            sigma, rgb, z, off, cnt, n_rays, k_total, mode, bkg, white_bkg, tail, out_rgb, out_depth, out_mask,
+            out_trans_end);
     } else {
-        segment_march_fwd_kernel<W, false><<<blocks, kThreads, 0, s>>>(sigma, rgb, z, off, cnt, n_rays, k_total, mode,
-                                                                       bkg, white_bkg, out_rgb, out_depth, out_mask,
-                                                                       out_trans_end);
+        segment_march_fwd_kernel<W, false, false><<<blocks, kThreads, 0, s>>>(
+            sigma, rgb, z, off, cnt, n_rays, k_total, mode, bkg, white_bkg, nullptr, out_rgb, out_depth, out_mask,
+            out_trans_end);
     }
 }
 
@@ -143,27 +154,31 @@ void launch(const float* sigma, const float* rgb, const float* z, const int64_t*
 
 // sigma (K,), rgb (K, 3), z (K,) f32; off/cnt (n_rays,) int64; mode: 0 or 1
 // the sigma mode without or with add_inf_z, 2 the alpha mode (sigma holds
-// alpha); bkg (n_rays, 3) f32 or null; group: lanes a ray, 32 or 8; outputs
-// rgb (n_rays, 3), depth/mask/trans_end (n_rays,) f32.
+// alpha); bkg (n_rays, 3) f32 or null; group: lanes a ray, 32 or 8; tail
+// (n_rays,) f32 or null (the tail mode, sigma modes only: each segment's last
+// delta reaches the ray's tail z where it is finite); outputs rgb (n_rays, 3),
+// depth/mask/trans_end (n_rays,) f32.
 extern "C" int arcnerf_segment_march_fwd(const void* sigma, const void* rgb, const void* z, const void* off,
                                          const void* cnt, int n_rays, long long k_total, int mode,
-                                         const void* bkg, int white_bkg, int group, void* out_rgb, void* out_depth,
-                                         void* out_mask, void* out_trans_end, void* stream) {
-    if (n_rays <= 0 || k_total < 0 || mode < 0 || mode > 2) return ARCNERF_BAD_ARGUMENT;
+                                         const void* bkg, int white_bkg, int group, const void* tail, void* out_rgb,
+                                         void* out_depth, void* out_mask, void* out_trans_end, void* stream) {
+    if (n_rays <= 0 || k_total < 0 || mode < 0 || mode > 2 || (mode == 2 && tail != nullptr))
+        return ARCNERF_BAD_ARGUMENT;
     const auto* sp = static_cast<const float*>(sigma);
     const auto* cp = static_cast<const float*>(rgb);
     const auto* zp = static_cast<const float*>(z);
     const auto* op = static_cast<const int64_t*>(off);
     const auto* np = static_cast<const int64_t*>(cnt);
     const auto* bp = static_cast<const float*>(bkg);
+    const auto* tp = static_cast<const float*>(tail);
     auto* orgb = static_cast<float*>(out_rgb);
     auto* od = static_cast<float*>(out_depth);
     auto* om = static_cast<float*>(out_mask);
     auto* ot = static_cast<float*>(out_trans_end);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (group) {
-        case 32: launch<32>(sp, cp, zp, op, np, n_rays, k_total, mode, bp, white_bkg, orgb, od, om, ot, s); break;
-        case 8: launch<8>(sp, cp, zp, op, np, n_rays, k_total, mode, bp, white_bkg, orgb, od, om, ot, s); break;
+        case 32: launch<32>(sp, cp, zp, op, np, n_rays, k_total, mode, bp, white_bkg, tp, orgb, od, om, ot, s); break;
+        case 8: launch<8>(sp, cp, zp, op, np, n_rays, k_total, mode, bp, white_bkg, tp, orgb, od, om, ot, s); break;
         default: return ARCNERF_BAD_ARGUMENT;
     }
     return static_cast<int>(cudaGetLastError());

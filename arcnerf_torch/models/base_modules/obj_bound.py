@@ -111,6 +111,11 @@ class BasicBound:
         occupancy bitfield in ``state`` (no: no structure)."""
         return False
 
+    def window(self, cap_offset, inference_only):
+        """The start of a call's window (an int) where the window mode
+        engages, else None (no structure: never)."""
+        return None
+
     def get_near_far_from_rays(self, state, inputs, near_hardcode=None, far_hardcode=None, bounding_radius=None):
         """-> near (B, 1), far (B, 1), mask_rays (B,)|None."""
         near, far = get_near_far_from_rays(inputs["rays_o"], inputs["rays_d"], inputs.get("bounds"), near_hardcode,
@@ -174,6 +179,14 @@ class VolumeBound(BasicBound):
         return ("bitfield" in state and self.get_optim_cfgs("epoch_optim") is not None
                 and bool(self.get_optim_cfgs("ray_sample_acc")) and bool(self.get_optim_cfgs("ray_sample_fix_step")))
 
+    def window(self, cap_offset, inference_only):
+        """The start of a call's window (an int): ``cap_offset`` where the
+        window mode engages (eval_cap_window set, at inference and with a
+        ``cap_offset`` fed), else None: the call samples as a plain one."""
+        if cap_offset is None or not inference_only or not self.get_optim_cfgs("eval_cap_window"):
+            return None
+        return int(cap_offset)
+
     def get_near_far_from_rays(self, state, inputs, **kwargs):
         near, far, _, mask = self.volume.ray_volume_intersection(inputs["rays_o"], inputs["rays_d"])
         return near, far, mask[:, 0]
@@ -190,8 +203,7 @@ class VolumeBound(BasicBound):
                                 perturb=False, generator=None, rays_o=None, rays_d=None, keep_order=False,
                                 cap_offset=None):
         """As ``BasicBound``'s, with the samples masked by occupancy and, at
-        inference, capped. Window mode engages only with eval_cap_window set,
-        at inference and with a ``cap_offset`` fed: the mask is then the
+        inference, capped. In the window mode (``window``) the mask is the
         pair (window mask, pre-cap mask)."""
         use_acc = self.get_optim_cfgs("epoch_optim") is not None and self.get_optim_cfgs("ray_sample_acc")
         if not use_acc or "bitfield" not in state:
@@ -206,10 +218,10 @@ class VolumeBound(BasicBound):
         else:
             zvals = get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear, generator=jitter)
             mask_pts = self.occupied(state, rays_o, rays_d, zvals)
-        window = bool(self.get_optim_cfgs("eval_cap_window")) and inference_only and cap_offset is not None
+        window = self.window(cap_offset, inference_only)
         mask_cap = _cap_pts_per_ray(mask_pts, inference_only, self.get_optim_cfgs("eval_max_pts_per_ray"),
-                                    offset=cap_offset if window else None)
-        if window:
+                                    offset=window)
+        if window is not None:
             return zvals, (mask_cap, mask_pts)
         return zvals, mask_cap
 

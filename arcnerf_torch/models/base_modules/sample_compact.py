@@ -21,6 +21,15 @@ a CUDA tensor launches the kernel or raises. Both give the same stream bit
 for bit: the kernel rounds as PyTorch's CUDA operators do. The jitter is fed as drawn uniforms
 (``rand``, (rays, n_pts)), the one draw the plain path makes.
 
+With ``offset`` (the window mode of the windowed tier's passes, at
+inference under a cap) the stream holds each ray's valid samples of rank in
+(offset, offset + cap], ``_cap_pts_per_ray`` with its offset, and each ray
+with a sample in the stream its ``tail``: the z of its next valid sample
+after the last one in the stream (past the window, or a window sample the
+budget dropped), +inf where there is none. Kernel C's tail mode marches the
+last sample up to it, as the dense march on the pre-cap mask does
+(``scattered_deltas``), so consecutive windows telescope.
+
 With ``sections`` the stream holds an SDF's sections in place of the
 samples (JAX ``Neus.handle_mid_pts`` on left-compacted rows, the model's
 ``sdf_sections`` here): a ray with c valid samples z_0 < ... < z_(c-1)
@@ -111,15 +120,25 @@ def sdf_sections(zvals, mask, n_sample):
     return mid, ext[:, 1:] - ext[:, :-1], (pos <= c) & (c > 0)
 
 
-def sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand=None, sections=False):
+def window_tail(zvals, mask_pre, offset, cnt):
+    """(B,): the z of each ray's valid sample (``mask_pre``, before the cap)
+    of rank ``offset + cnt + 1``, the next after the last of its window in
+    the stream, where cnt > 0 and it exists; else +inf."""
+    rank = torch.cumsum(mask_pre.to(torch.int64), dim=1)
+    at = mask_pre & (rank == (offset + cnt + 1)[:, None]) & (cnt > 0)[:, None]
+    return torch.where(at, zvals, torch.inf).amin(dim=1)
+
+
+def sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand=None, sections=False,
+                           offset=None):
     """Plain version of ``sample_count`` (on any device): near/far from the
     volume's box, the fix-step ladder with its jitter, the occupancy and
     cap masks on the (B, n_pts) grid (with ``sections``, then the SDF's
-    sections on it), and the compaction's indices, which ``sample_write``
-    gathers."""
+    sections on it; with ``offset``, the window's mask and its tails), and
+    the compaction's indices, which ``sample_write`` gathers."""
     near, far, _, hit = volume.ray_volume_intersection(rays_o, rays_d)
-    zvals, mask = occupied_ladder(volume, bitfield, rays_o, rays_d, near, far, n_pts, rand=rand)
-    mask = _cap_pts_per_ray(mask, True, cap)
+    zvals, pre = occupied_ladder(volume, bitfield, rays_o, rays_d, near, far, n_pts, rand=rand)
+    mask = _cap_pts_per_ray(pre, True, cap, offset=offset)
     plan = {"rays_o": rays_o, "rays_d": rays_d, "budget": int(budget), "ray_has": hit[:, 0] & mask.any(dim=1),
             "zvals": zvals}
     if sections:
@@ -127,10 +146,13 @@ def sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=
         zvals, plan["len_grid"], mask = sdf_sections(zvals, mask, n_pts)
         plan["zvals"] = zvals
     sel, _, off, cnt = compact_sel_aux(mask, int(budget))
+    if offset is not None:
+        plan["n_win"] = mask.sum(dim=1, dtype=torch.int32)
+        plan["tail"] = window_tail(zvals, pre, int(offset), cnt)
     return dict(plan, off=off, cnt=cnt, n_valid=mask.sum(), sel=sel)
 
 
-def sample_count(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand=None, sections=False):
+def sample_count(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand=None, sections=False, offset=None):
     """The count phase over rays_o, rays_d (B, 3) on the ``volume``'s
     fix-step ladder of ``n_pts`` slots between the ray's near and far in
     its box, culled by the ``bitfield``: the first ``cap`` valid samples a
@@ -140,19 +162,27 @@ def sample_count(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand
     budget), ray_has (B,) bool (the ray hits the box and keeps a sample:
     the rays that render), and what ``sample_write`` reads. With
     ``sections`` the stream holds an SDF's sections, and off, cnt and
-    n_valid count sections."""
+    n_valid count sections. With ``offset`` (an int; it takes a cap, and
+    samples) they count the window's samples, of rank in (offset, offset +
+    cap], and the plan also holds n_win (B,) int32, each ray's."""
+    if offset is not None and not (cap and not sections):
+        raise ValueError("sample_count: a window (offset {}) takes a cap, and samples".format(offset))
     if rays_o.is_cpu:
-        return sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap, rand, sections)
+        return sample_count_reference(volume, bitfield, rays_o, rays_d, n_pts, budget, cap, rand, sections, offset)
     box, inv = _grid(volume)
     args = {"rays_o": rays_o.contiguous(), "rays_d": rays_d.contiguous(), "bitfield": bitfield.contiguous(),
             "rand": rand, "n_pts": int(n_pts), "fix_t": ladder_step(volume, n_pts), "box": box, "inv_voxel": inv}
     count_args = dict(sections=True) if sections else {}
-    off, cnt, n_valid, ray_has, near_far, clamp, first_z = cuda_lib.ops().sample_count(**args, cap=int(cap or 0),
-                                                                                       budget=int(budget),
-                                                                                       **count_args)
+    if offset is not None:
+        count_args["offset"] = int(offset)
+    off, cnt, n_valid, ray_has, near_far, clamp, first_z, tot = cuda_lib.ops().sample_count(
+        **args, cap=int(cap or 0), budget=int(budget), **count_args)
     sample_count.launches += 1
-    return {"budget": int(budget), "off": off, "cnt": cnt, "n_valid": n_valid, "ray_has": ray_has, "args": args,
+    plan = {"budget": int(budget), "off": off, "cnt": cnt, "n_valid": n_valid, "ray_has": ray_has, "args": args,
             "near_far": near_far, "clamp": clamp, "first_z": first_z, "sections": bool(sections), "cap": int(cap or 0)}
+    if offset is not None:
+        plan.update(n_win=tot, offset=int(offset))
+    return plan
 
 
 def sample_write(plan):
@@ -160,23 +190,30 @@ def sample_write(plan):
     dirs (budget, 3), off, cnt}: the valid samples in ray-major ladder
     order, then rows that repeat ray 0's first sample. A plan of sections
     also gives ``len`` (budget,), each section's length, 0 in the rows
-    past them."""
+    past them; a window's plan ``tail`` (B,), each ray's tail z."""
     out = {"off": plan["off"], "cnt": plan["cnt"]}
     if "sel" in plan:
         out["z"], out["pts"], out["dirs"] = gather_stream(plan["sel"], plan["zvals"], plan["rays_o"], plan["rays_d"])
         if "len_grid" in plan:
             out["len"] = plan["len_grid"].reshape(-1)[plan["sel"]]
             _pad_sections(out, plan)
+        if "tail" in plan:
+            out["tail"] = plan["tail"]
     else:
         write_args = dict(sections=True, cap=plan["cap"]) if plan["sections"] else {}
-        z, pts, dirs, length = cuda_lib.ops().sample_write(**plan["args"], near_far=plan["near_far"],
-                                                           clamp=plan["clamp"], first_z=plan["first_z"],
-                                                           off=plan["off"], cnt=plan["cnt"], n_valid=plan["n_valid"],
-                                                           budget=plan["budget"], **write_args)
+        if "offset" in plan:
+            write_args.update(cap=plan["cap"], offset=plan["offset"])
+        z, pts, dirs, length, tail = cuda_lib.ops().sample_write(**plan["args"], near_far=plan["near_far"],
+                                                                 clamp=plan["clamp"], first_z=plan["first_z"],
+                                                                 off=plan["off"], cnt=plan["cnt"],
+                                                                 n_valid=plan["n_valid"], budget=plan["budget"],
+                                                                 **write_args)
         sample_write.launches += 1
         out.update(z=z, pts=pts, dirs=dirs)
         if length is not None:
             out["len"] = length
+        if tail is not None:
+            out["tail"] = tail
     return out
 
 
@@ -192,12 +229,16 @@ def _pad_sections(out, plan):
 
 
 def sample_compact(volume, bitfield, rays_o, rays_d, n_pts, budget, cap=None, rand=None, count=sample_count,
-                   sections=False):
+                   sections=False, offset=None):
     """Both phases: the stream of ``sample_write`` plus n_valid and
-    ray_has. ``count=sample_count_reference`` takes the plain version on
-    any device."""
-    plan = count(volume, bitfield, rays_o, rays_d, n_pts, budget, cap, rand, sections)
-    return dict(sample_write(plan), n_valid=plan["n_valid"], ray_has=plan["ray_has"])
+    ray_has (and with ``offset`` the window's n_win).
+    ``count=sample_count_reference`` takes the plain version on any
+    device."""
+    plan = count(volume, bitfield, rays_o, rays_d, n_pts, budget, cap, rand, sections, offset)
+    out = dict(sample_write(plan), n_valid=plan["n_valid"], ray_has=plan["ray_has"])
+    if offset is not None:
+        out["n_win"] = plan["n_win"]
+    return out
 
 
 sample_count.launches = 0

@@ -9,8 +9,9 @@ training draws (sample jitter, sigma noise) come from a ``torch.Generator``
 passed down from the trainer. The bound owns the fix-step occupancy ladder
 (``obj_bound.occupied_ladder``), whose slots ``_n_coarse`` sets. Where the
 bound walks it, ``forward`` samples and compacts in one (``sample_compact``,
-a kernel on the card) and builds no (rays, samples) grid; for an SDF model
-it writes the model's sections. On the grid, ``_compact_stream`` compacts.
+a kernel on the card) and builds no (rays, samples) grid, the windows of
+the transmittance-continuation render included; for an SDF model it writes
+the model's sections. On the grid, ``_compact_stream`` compacts.
 Surface rendering is not ported.
 """
 
@@ -68,17 +69,21 @@ class FgModel(Base3dModel):
         bkg = get_value_from_cfgs_field(self.cfgs.model, "background", None)
         return not (bkg is not None and get_value_from_cfgs_field(bkg, "bkg_blend", "rgb") == "sigma")
 
-    def fuses_sampling(self, bound_state, get_progress=False, cap_offset=None):
+    def fuses_sampling(self, bound_state, get_progress=False, cap_offset=None, inference_only=True):
         """Whether ``forward`` samples and compacts in one
         (``sample_compact``, a kernel on the card): the bound walks its
         fix-step occupancy ladder, the masks are scattered (or the model
-        takes an SDF's sections), a point budget applies, and neither a
-        window (``cap_offset``) nor progress outputs are asked for.
-        Everything else needs the (rays, n_pts) grid."""
+        takes an SDF's sections), a point budget applies, no progress
+        outputs are asked for, and where the bound opens a window
+        (``obj_bound.window``) it is one of samples under a cap (an SDF's
+        sections keep the grid there). Everything else needs the (rays,
+        n_pts) grid."""
         budget = self.get_render_cfgs("max_allowance")
+        window_ok = self.obj_bound.window(cap_offset, inference_only) is None or (
+            not self.stream_sections() and bool(self.obj_bound.get_optim_cfgs().get("eval_max_pts_per_ray")))
         return (self.obj_bound.occupancy_ladder(bound_state or {})
                 and (self.use_scattered_masks() or self.stream_sections())
-                and isinstance(budget, int) and budget > 0 and cap_offset is None and not get_progress)
+                and isinstance(budget, int) and budget > 0 and window_ok and not get_progress)
 
     # -------------------------------------------------------------- forward
     def forward(self, inputs, inference_only=True, get_progress=False, bound_state=None, generator=None):
@@ -91,15 +96,22 @@ class FgModel(Base3dModel):
         are jittered when rays.perturb is set, and sigma noised when
         rays.noise_std > 0, with draws from ``generator``. Where
         ``fuses_sampling`` holds, ``_forward`` gets the compacted stream
-        (inputs["stream"]) in place of the grid's zvals and masks."""
+        (inputs["stream"]) in place of the grid's zvals and masks; a
+        window's stream carries each ray's tail z, so that its march
+        reaches the next sample past the window as the grid's does."""
         bound_state = bound_state or {}
-        if self.fuses_sampling(bound_state, get_progress, inputs.get("cap_offset")):
-            inputs, mask_rays, n_valid = self._sample_stream(inputs, inference_only, bound_state, generator)
+        if self.fuses_sampling(bound_state, get_progress, inputs.get("cap_offset"), inference_only):
+            window = self.obj_bound.window(inputs.get("cap_offset"), inference_only)
+            inputs, plan = self._sample_stream(inputs, inference_only, bound_state, generator, window)
             output = self._forward(inputs, inference_only, get_progress, generator)
-            output = self.update_values_for_invalid_rays(output, mask_rays, inputs.get("bkg_color"))
-            output["n_valid_pts"] = n_valid
+            # a window reports a partial integral: rays with an empty window give 0
+            output = self.update_values_for_invalid_rays(output, plan["ray_has"], inputs.get("bkg_color"),
+                                                         zero_fill=window is not None)
+            output["n_valid_pts"] = plan["n_valid"]
+            if window is not None:
+                output["n_win_pts"] = plan["n_win"]
             if inference_only and profiler.active():  # training counts its steps outside the captured step
-                self.count_stream(n_valid, inputs["rays_o"].shape[0])
+                self.count_stream(plan["n_valid"], inputs["rays_o"].shape[0], window is not None)
             return output
 
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
@@ -142,13 +154,14 @@ class FgModel(Base3dModel):
             n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
         return n_coarse
 
-    def _sample_stream(self, inputs, inference_only, bound_state, generator):
+    def _sample_stream(self, inputs, inference_only, bound_state, generator, window=None):
         """The fused sampler: the bound's near/far, the ladder, its
-        occupancy, the cap and the compaction in two launches
+        occupancy, the cap (the window of rank in (``window``, ``window`` +
+        cap] when that is an int) and the compaction in two launches
         (``sample_count`` in the sample span, ``sample_write`` in the compact
         span). The jitter is the plain path's one draw, from ``generator``
-        at the same point. Returns (inputs with the stream, mask_rays (B,),
-        n_valid_pts)."""
+        at the same point. Returns (inputs with the stream, the count's plan:
+        ray_has (B,), n_valid, and a window's n_win (B,))."""
         rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
         n_rays, n_pts = rays_o.shape[0], self._n_coarse(inference_only)
         budget = self.stream_budget(n_rays, inference_only)
@@ -158,24 +171,25 @@ class FgModel(Base3dModel):
             if self.get_ray_cfgs("perturb") and not inference_only and generator is not None:
                 rand = torch.rand((n_rays, n_pts), generator=generator, dtype=rays_o.dtype, device=rays_o.device)
             plan = sample_count(self.obj_bound.get_obj_bound(), bound_state["bitfield"], rays_o, rays_d, n_pts,
-                                budget, cap, rand, sections=self.stream_sections())
+                                budget, cap, rand, sections=self.stream_sections(), offset=window)
         with profiler.span("model.compact"):
             stream = sample_write(plan)
-        return dict(inputs, stream=stream), plan["ray_has"], plan["n_valid"]
+        return dict(inputs, stream=stream), plan
 
     def stream_budget(self, n_rays, inference_only):
         """The rows of the fused sampler's stream for a call of ``n_rays``
         rays: the compaction budget, at most every ladder slot."""
         return min(self._compact_budget(n_rays, inference_only), n_rays * self._n_coarse(inference_only))
 
-    def count_stream(self, n_valid, n_rays):
+    def count_stream(self, n_valid, n_rays, window=False):
         """Serving calls' counters on the fused sampler (tracing on): the
         valid samples ``n_valid`` (a device tensor, one count a call) each
-        against the stream of a call of ``n_rays`` rays, and the calls. An
-        eager call counts its own; a replay of the exact tier's frame graph
-        counts its chunks' from their static counts."""
+        against the stream of a call of ``n_rays`` rays, and the calls:
+        ``sample.fused``, or ``sample.window`` for a window of the windowed
+        tier. An eager call counts its own; a replay of the exact tier's
+        frame graph counts its chunks' from their static counts."""
         profiler.count_compact(n_valid, self.stream_budget(n_rays, True))
-        profiler.count("sample.fused", n_valid.numel())
+        profiler.count("sample.window" if window else "sample.fused", n_valid.numel())
 
     def stream_sections(self):
         """Whether the fused sampler writes an SDF's sections (SdfModel)
@@ -251,8 +265,9 @@ class FgModel(Base3dModel):
 
     def render_stream(self, geo_net, radiance_net, stream, inference_only=True, bkg_color=None, generator=None):
         """sigma and radiance on a compacted stream ({z, pts, dirs, off,
-        cnt}, of ``gather_stream`` or ``sample_write``), composited along
-        each ray (``segment_march``). Returns {rgb, depth, mask}."""
+        cnt}, of ``gather_stream`` or ``sample_write``; a window's also
+        tail), composited along each ray (``segment_march``). Returns {rgb,
+        depth, mask}."""
         sigma_c, radiance_c = self._forward_pts_dir(geo_net, radiance_net, stream["pts"], stream["dirs"])
         noise = None
         noise_std = 0.0 if inference_only else float(self.get_ray_cfgs("noise_std") or 0.0)
@@ -264,7 +279,7 @@ class FgModel(Base3dModel):
             out = segment_march(sigma_c, radiance_c, stream["z"], stream["off"], stream["cnt"],
                                 add_inf_z=self.get_ray_cfgs("add_inf_z"),
                                 white_bkg=self.get_ray_cfgs("white_bkg"), bkg_color=bkg_color, noise=noise,
-                                group=group)
+                                group=group, tail=stream.get("tail"))
         out.pop("trans_end")
         return out
 

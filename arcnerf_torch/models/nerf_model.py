@@ -3,10 +3,11 @@ bound it is the NGP recipe (``configs/models/nerf_ngp.yaml``).
 
 Counterpart of ``arcnerf_tpu/models/nerf_model.py``: ``setup`` and
 ``_forward``'s dispatch, at inference and in training: the compacted-stream
-render where it applies (on the fused sampler's stream or the grid's
-mask), else the dense path (sigma and radiance on the (rays, samples)
-grid, then ``ray_marching``), which also serves the progress outputs and
-the windows of the transmittance-continuation render.
+render where it applies (on the fused sampler's stream, the windows of the
+transmittance-continuation render included, or the grid's mask), else the
+dense path (sigma and radiance on the (rays, samples) grid, then
+``ray_marching``), which also serves the progress outputs and the windows
+off the fix-step ladder.
 Importance resampling raises NotImplementedError.
 """
 

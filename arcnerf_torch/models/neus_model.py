@@ -114,11 +114,11 @@ class Neus(SdfModel):
             out["params"] = {"scale": self.forward_scale()[0]}
         return out
 
-    def count_stream(self, n_valid, n_rays):
+    def count_stream(self, n_valid, n_rays, window=False):
         """The fused sampler's counters, and the sections whose normals
         the call takes: every kept one, the valid sections up to the
         stream's budget."""
-        super().count_stream(n_valid, n_rays)
+        super().count_stream(n_valid, n_rays, window)
         self.count_normal_pts(n_valid.clamp_max(self.stream_budget(n_rays, True)).sum())
 
     def get_est_opacity(self, dt, pts):

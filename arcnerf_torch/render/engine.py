@@ -488,7 +488,7 @@ class RenderEngine:
             imgs = self.render_image(sample, chunk_rays=chunk_rays, bkg_color=bkg_color)
             return imgs, {"fallback": "bkg-owning model"}
         bound = fg.get_obj_bound()
-        if not (bound.get_optim_cfgs().get("eval_cap_window") and bound.get_optim_cfgs().get("eval_max_pts_per_ray")):
+        if bound.window(0, inference_only=True) is None or not bound.get_optim_cfgs().get("eval_max_pts_per_ray"):
             raise RuntimeError("call set_render_cap(cap, window=True) before render_image_windowed")
         cap = int(bound.get_optim_cfgs("eval_max_pts_per_ray"))
         h, w = int(sample["H"]), int(sample["W"])

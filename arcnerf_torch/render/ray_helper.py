@@ -248,7 +248,8 @@ def march_group(cap=None):
     return CAPPED_GROUP if cap and int(cap) <= CAPPED_MAX else TRAIN_GROUP
 
 
-def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, alpha=False):
+def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, alpha=False,
+                            tail=None):
     """Plain version of the compositing on the compacted stream.
 
     Each ray's segment [off, off + cnt) (clipped to the stream) is gathered
@@ -256,7 +257,11 @@ def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=N
     rgb (N_rays, 3), depth, mask, trans_end (N_rays,). ``bkg`` is a
     (N_rays, 3) background composited with trans_end. With ``alpha`` the
     stream's ``sigma`` holds each sample's alpha (an SDF's sections), which
-    is composited as it is: no delta, no relu."""
+    is composited as it is: no delta, no relu. ``tail`` (N_rays,), a
+    window's (``sample_compact``): a segment's last delta reaches its ray's
+    tail z where that is finite (crushed below 1e-5 as the others), as the
+    dense march on the pre-cap mask gives it; elsewhere the tail rule
+    holds."""
     k_total = sigma.shape[0]
     start = off.clamp_max(k_total)
     n = (off + cnt).clamp_max(k_total) - start  # in-stream samples per ray
@@ -268,9 +273,14 @@ def segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=N
     z_next = torch.cat([zs[:, 1:], zs[:, -1:]], 1)
     has_next = torch.cat([inseg[:, 1:], torch.zeros_like(inseg[:, :1])], 1)
     deltas = torch.where(has_next, z_next - zs, 0.0)
+    last_in = inseg & ~has_next
+    if tail is not None:
+        has_tail = last_in & torch.isfinite(tail)[:, None]
+        deltas = torch.where(has_tail, tail[:, None] - zs, deltas)
+        last_in = last_in & ~has_tail
     deltas = torch.where(deltas.abs() < 1e-5, 0.0, deltas)
     if add_inf_z:
-        deltas = torch.where(inseg & ~has_next, 1e10, deltas)
+        deltas = torch.where(last_in, 1e10, deltas)
     if alpha:
         alpha = torch.where(inseg, sigma[idx], 0.0)
     else:
@@ -349,12 +359,15 @@ def segment_march_bwd_reference(sigma, radiance, z, off, cnt, g_rgb, g_depth, g_
 
 
 def segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z=False, bkg=None, white_bkg=False, group=TRAIN_GROUP,
-                      alpha=False):
+                      alpha=False, tail=None):
     """Kernel C on CUDA tensors -> {rgb, depth, mask, trans_end}, or raises;
     ``group`` lanes a ray (32 or 8, see ``march_group``); ``alpha``: the
-    stream holds alpha in place of sigma."""
+    stream holds alpha in place of sigma; ``tail`` (N_rays,) or None: a
+    window's tails (C's tail mode, see ``segment_march_reference``)."""
+    tail_args = {} if tail is None else {"tail": tail}
     rgb, depth, mask, trans_end = cuda_lib.ops().segment_march_fwd(sigma, radiance, z, off, cnt, bool(add_inf_z), bkg,
-                                                                   bool(white_bkg), int(group), bool(alpha))
+                                                                   bool(white_bkg), int(group), bool(alpha),
+                                                                   **tail_args)
     if off.shape[0] > 0:
         segment_march.launches += 1
     return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
@@ -404,7 +417,7 @@ class _SegmentMarchFunction(torch.autograd.Function):
 
 
 def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False, bkg_color=None, noise=None,
-                  group=TRAIN_GROUP, alpha=False):
+                  group=TRAIN_GROUP, alpha=False, tail=None):
     """Alpha compositing over a COMPACTED sample stream.
 
     sigma (K,), radiance (K, 3), z (K,) hold the stream (first sum(cnt)
@@ -414,7 +427,8 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
     composited with the end transmittance; else ``white_bkg`` fills
     1 - mask. ``noise`` (K,) is added to sigma first (the JAX ``noise``,
     pre-drawn). With ``alpha`` the stream's ``sigma`` holds alpha (an SDF's
-    sections; kernels C and F in their alpha mode).
+    sections; kernels C and F in their alpha mode). ``tail`` (N_rays,): a
+    window's tails (kernel C's tail mode; inference only, no gradient).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches kernel C
     on ``group`` lanes a ray (``march_group``), and kernel F in the
@@ -428,12 +442,14 @@ def segment_march(sigma, radiance, z, off, cnt, add_inf_z=False, white_bkg=False
     if not (z.is_cpu or z.is_cuda):  # the binding checks the rest; this spares a build
         raise ValueError("segment_march: expected CPU or CUDA tensors, got {}".format(z.device))
     if torch.is_grad_enabled() and (sigma.requires_grad or radiance.requires_grad):
+        if tail is not None:
+            raise NotImplementedError("segment_march: a window's tail marches at inference only")
         rgb, depth, mask, trans_end = _SegmentMarchFunction.apply(sigma.contiguous(), radiance.contiguous(), z, off,
                                                                   cnt, bkg, add_inf_z, white_bkg, group, alpha)
         return {"rgb": rgb, "depth": depth, "mask": mask, "trans_end": trans_end}
     if z.is_cpu:
-        return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, alpha)
-    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group, alpha)
+        return segment_march_reference(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, alpha, tail)
+    return segment_march_fwd(sigma, radiance, z, off, cnt, add_inf_z, bkg, white_bkg, group, alpha, tail)
 
 
 segment_march.launches = 0

@@ -68,10 +68,10 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    the counted ladder of 512 / 8 passes): for each a warm-up and 3 timed
    frames (median, host clock around torch.cuda.synchronize()), PSNR
    against the exact frame, stats, peak memory and the launches of A-C and
-   the sampler a frame (A and B in every tier, C and the sampler in all
-   but the windowed ones, which launch no sampler; the exact tier's from
-   one replayed frame by kernel name: each as often as an eager frame's
-   counters and at least once a replayed chunk). Gates:
+   the sampler a frame (each in every tier: the windowed tier's windows
+   sample through S's window mode and march through C's tail mode; the
+   exact tier's from one replayed frame by kernel name: each as often as an
+   eager frame's counters and at least once a replayed chunk). Gates:
    finite (800, 800, ...) images; fast at hit_frac 1.0 against exact (rgb
    max abs <= 5e-2); windows at eps 0 against the uncapped render of the
    4096-ray crop (<= 1e-3); windowed s1 >= 40 dB against the uncapped
@@ -443,12 +443,12 @@ def compare_segment_march(dev, gen):
     return [row], entry
 
 
-def c_bound(cnt, n_rays):
+def c_bound(cnt, n_rays, tail=False):
     """Kernel C's bound: the valid samples' sigma, rgb, z and per ray off,
-    cnt (int64), bkg in, rgb, depth, mask, trans_end out; ~10 f32 flops a
-    sample."""
+    cnt (int64), bkg (and in the tail mode the tail, f32) in, rgb, depth,
+    mask, trans_end out; ~10 f32 flops a sample."""
     n_valid = int(cnt.sum())
-    return bound(n_valid * 20 + n_rays * (16 + 12 + 24), n_valid * 10, F32_FLOP_S)
+    return bound(n_valid * 20 + n_rays * (16 + 12 + 24 + (4 if tail else 0)), n_valid * 10, F32_FLOP_S)
 
 
 def f_bound(cnt, n_rays, k_total):
@@ -858,11 +858,13 @@ def compare_march_stream(march):
 
 
 # the fused sampler at the main paths' shapes: (label, rays, jitter, cap,
-# budget) on the scene's occupancy with a tenth of the rays missing, 512
-# ladder slots a ray
+# budget, window offset) on the scene's occupancy with a tenth of the rays
+# missing, 512 ladder slots a ray; the window mode on a chunk of the
+# windowed tier at cap 8, its ninth window (offset 8 x cap)
 S_SLOTS = 512
-S_CASES = (("training step", 16384, True, None, 1 << 18), ("serving chunk", 16384, False, 16, 1 << 18),
-           ("last serving chunk", 1024, False, 16, 16384))
+S_CASES = (("training step", 16384, True, None, 1 << 18, None), ("serving chunk", 16384, False, 16, 1 << 18, None),
+           ("last serving chunk", 1024, False, 16, 16384, None),
+           ("serving window", 16384, False, 8, 1 << 17, 64))
 S_KEYS = ("z", "pts", "dirs", "off", "cnt", "n_valid", "ray_has")
 
 
@@ -883,30 +885,32 @@ def compare_sample_compact(dev, gen):
     vol = ladder_volume()
     bitfield = ladder_bitfield("scene", vol, SEED, device=dev)
     rows, entry = [], {"cases": {}}
-    for label, n_rays, jitter, cap, budget in S_CASES:
+    for label, n_rays, jitter, cap, budget, offset in S_CASES:
         o, d = ladder_rays(vol, n_rays, SEED, 0.1, device=dev)
         rand = ladder_rand(n_rays, S_SLOTS, SEED + 1, device=dev) if jitter else None
         args = (vol, bitfield, o, d, S_SLOTS, budget, cap, rand)
+        window = {} if offset is None else {"offset": offset}
 
         def run():
-            return sampler.sample_compact(*args)
+            return sampler.sample_compact(*args, **window)
 
         def plain():
-            return sampler.sample_compact(*args, count=sampler.sample_count_reference)
+            return sampler.sample_compact(*args, count=sampler.sample_count_reference, **window)
 
         got, want = run(), plain()
-        for k in S_KEYS:
+        for k in S_KEYS + (("n_win", "tail") if window else ()):
             if not torch.equal(got[k], want[k]):
                 raise AssertionError("sampler {}: {} is not bit-identical to the plain version".format(label, k))
         c = {"max_abs_err": 0.0, "ms": graph_ms(run), "events_ms": time_ms(run),
-             "count_ms": graph_ms(lambda: sampler.sample_count(*args)), "plain_ms": time_ms(plain, 3),
+             "count_ms": graph_ms(lambda: sampler.sample_count(*args, **window)), "plain_ms": time_ms(plain, 3),
              "n_valid": int(got["n_valid"]), "kept": int(got["cnt"].sum())}
         del got, want
         suffix = add_bound(c, [s_bound(n_rays, jitter, budget)])
-        rows.append("S sample_compact {} ({} rays x {} slots, jitter {}, cap {}, budget {}; {} valid, {} kept): "
-                    "bit-identical, kernel {:.4f} ms (CUDA graph; count + scan {:.4f} ms; CUDA events {:.4f} ms), "
-                    "plain {:.4f} ms, {}".format(label, n_rays, S_SLOTS, jitter, cap, budget, c["n_valid"], c["kept"],
-                                                 c["ms"], c["count_ms"], c["events_ms"], c["plain_ms"], suffix))
+        rows.append("S sample_compact {} ({} rays x {} slots, jitter {}, cap {}, budget {}, window offset {}; {} valid, "
+                    "{} kept): bit-identical, kernel {:.4f} ms (CUDA graph; count + scan {:.4f} ms; CUDA events "
+                    "{:.4f} ms), plain {:.4f} ms, {}".format(label, n_rays, S_SLOTS, jitter, cap, budget, offset,
+                                                             c["n_valid"], c["kept"], c["ms"], c["count_ms"],
+                                                             c["events_ms"], c["plain_ms"], suffix))
         entry["cases"][label] = c
     entry.update(entry["cases"]["training step"])
     return rows, entry
@@ -940,6 +944,54 @@ def compare_serving_chunk(march):
                                                  "per ray" if flags[1] is not None else None, flags[2],
                                                  kwargs or "no keywords", err, C_TOL, c["ms"], c["events_ms"],
                                                  PARENT_MS["C serving"], c["plain_ms"], suffix, length_text(lengths))]
+    return rows, c
+
+
+def compare_serving_window(dev, march):
+    """Kernel C's tail mode on the stream S writes for S_CASES' serving
+    window (a chunk of the windowed tier: 16384 rays, cap 8, its ninth
+    window, each ray's tail), at the capped group width, against its plain
+    version (C_TOL); sigma and rgb drawn from the valid rows of the serving
+    chunk (``capture_chunk``), so that they have its scale. Timed from a
+    CUDA graph and through CUDA events beside its bound."""
+    from arcnerf_torch.models.base_modules import sample_compact as sampler
+    from arcnerf_torch.render.ray_helper import march_group, segment_march_fwd, segment_march_reference
+    from arcnerf_torch.tools.sample_streams import ladder_bitfield, ladder_rays, ladder_volume
+
+    label, n_rays, _, cap, budget, offset = S_CASES[-1]
+    vol = ladder_volume()
+    o, d = ladder_rays(vol, n_rays, SEED, 0.1, device=dev)
+    stream = sampler.sample_compact(vol, ladder_bitfield("scene", vol, SEED, device=dev), o, d, S_SLOTS, budget, cap,
+                                    offset=offset)
+    z, off, cnt, tail = (stream[k] for k in ("z", "off", "cnt", "tail"))
+    n_src = int(march["cnt"].sum())
+    pick = torch.randint(0, n_src, z.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    sigma, rgb = march["sigma"][pick].contiguous(), march["rgb"][pick].contiguous()
+    flags, group = (march["add_inf_z"], None, False), march_group(cap)
+    n_tail = int((torch.isfinite(tail) & (cnt > 0)).sum())
+    if n_tail == 0:
+        raise AssertionError("segment_march serving window: no ray marches to a tail")
+
+    def run():
+        return segment_march_fwd(sigma, rgb, z, off, cnt, *flags, group=group, tail=tail)
+
+    def plain():
+        return segment_march_reference(sigma, rgb, z, off, cnt, *flags, tail=tail)
+
+    out, ref = run(), plain()
+    err = 0.0
+    for k in ("rgb", "depth", "mask", "trans_end"):
+        check_close("segment_march serving window " + k, out[k], ref[k], C_TOL, C_TOL)
+        err = max(err, max_err(out[k], ref[k]))
+    lengths = segment_lengths(off, cnt, z.shape[0])
+    c = {"max_abs_err": err, "ms": graph_ms(run), "events_ms": time_ms(run), "plain_ms": time_ms(plain, 3),
+         "lengths": length_summary(lengths), "rays_with_tail": n_tail}
+    suffix = add_bound(c, [c_bound(lengths, n_rays, tail=True)])
+    rows = ["C segment_march {} ({} rays, {} rows, cap {}, window offset {}, {} lanes a ray, add_inf_z {}, {} rays "
+            "with a tail): max abs err {:.3e} (tol {} rel), kernel {:.4f} ms (CUDA graph; CUDA events {:.4f} ms), "
+            "plain {:.4f} ms, {}; segments: {}".format(label, n_rays, z.shape[0], cap, offset, group, flags[0], n_tail,
+                                                       err, C_TOL, c["ms"], c["events_ms"], c["plain_ms"], suffix,
+                                                       length_text(lengths))]
     return rows, c
 
 
@@ -1188,7 +1240,8 @@ def launch_path(dev, gen):
                     lambda: cuda_lib.float3(lo), lambda: cuda_lib.float3(span), 0, 1, ptr(enc_out)), None),
         "C": (lambda: segment_march_fwd(sigma, rgb, z, off, cnt, bkg=bkg),
               entry("segment_march_fwd", ptr(sigma), ptr(rgb), ptr(z), ptr(off), ptr(cnt), rows, k, 0, ptr(bkg), 0,
-                    *since("arcnerf_segment_march_fwd", 16, 32), *[ptr(t) for t in march_out]), None),
+                    *since("arcnerf_segment_march_fwd", 16, 32), *since("arcnerf_segment_march_fwd", 17, None),
+                    *[ptr(t) for t in march_out]), None),
         "D": (lambda: fused_mlp_bwd(x, g16, ws, pre, packed=packed),
               entry("fused_mlp_bwd", ptr(x), ptr(g16), rows, 32, 32, ptr(packed), 64, 1, 16, 16, ptr(pre), ptr(dx),
                     ptr(parts)), None),
@@ -1561,11 +1614,8 @@ def tiers(trainer):
         check_frame(key, imgs)
         if exact is None:
             exact = imgs["rgb"]
-        need = "ABCS" if tier != "windowed" else "AB"
-        if min(launches[k] for k in need) <= 0:
+        if min(launches[k] for k in "ABCS") <= 0:  # the windowed tier's windows on S and C too
             raise AssertionError("{}: a kernel of the tier never launched: {}".format(key, launches))
-        if tier == "windowed" and launches["S"] != 0:
-            raise AssertionError("{}: the windowed tier launched the fused sampler: {}".format(key, launches))
         if tier == "windowed" and stats["clipped_alive"] != 0:
             raise AssertionError("{}: {} alive rays clipped".format(key, stats["clipped_alive"]))
         numbers[key] = {"ms": statistics.median(times) * 1e3, "runs_ms": [t * 1e3 for t in times],
@@ -2233,7 +2283,11 @@ def main():
     rows, stats["C"]["serving_chunk"] = compare_serving_chunk(serving)
     for row in rows:
         print(row)
-    stats["C"]["max_abs_err"] = max(stats["C"]["max_abs_err"], stats["C"]["serving_chunk"]["max_abs_err"])
+    rows, stats["C"]["serving_window"] = compare_serving_window(dev, serving)
+    for row in rows:
+        print(row)
+    stats["C"]["max_abs_err"] = max(stats["C"]["max_abs_err"], stats["C"]["serving_chunk"]["max_abs_err"],
+                                    stats["C"]["serving_window"]["max_abs_err"])
     del serving
     train_launches, e_stream, eager_psnr = train(profile="--profile" in sys.argv[1:])
     launches = dict(train_launches, **{k: tool_launches[k] for k in "GHIJ"})

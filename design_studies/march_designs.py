@@ -91,8 +91,9 @@ def run_fwd_stream(lib, label, stream, group):
     for v, name in enumerate(C_VARIANTS):
         def call(v=v):
             stream_, width = torch.cuda.current_stream().cuda_stream, C_WIDTHS[v]
-            launch = entry if width in C_SHIPPED else lib.design_segment_march_fwd
-            return launch(*head, width, *tail, stream_)
+            if width in C_SHIPPED:  # the package's launcher takes a window tail after the width (none here)
+                return entry(*head, width, None, *tail, stream_)
+            return lib.design_segment_march_fwd(*head, width, *tail, stream_)
 
         for t in outs:
             t.fill_(float("nan"))

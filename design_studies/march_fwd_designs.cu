@@ -87,8 +87,12 @@ extern "C" int design_segment_march_fwd(const void* sigma, const void* rgb, cons
             thread_per_ray_fwd<<<(n_rays + 255) / 256, 256, 0, s>>>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z,
                                                                    bp, white_bkg, orgb, od, om, ot);
             break;
-        case 16: launch<16>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z, bp, white_bkg, orgb, od, om, ot, s); break;
-        case 4: launch<4>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z, bp, white_bkg, orgb, od, om, ot, s); break;
+        case 16:
+            launch<16>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z, bp, white_bkg, nullptr, orgb, od, om, ot, s);
+            break;
+        case 4:
+            launch<4>(sp, cp, zp, op, np, n_rays, k_total, add_inf_z, bp, white_bkg, nullptr, orgb, od, om, ot, s);
+            break;
         default: return ARCNERF_BAD_ARGUMENT;
     }
     return static_cast<int>(cudaGetLastError());

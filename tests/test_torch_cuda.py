@@ -1081,11 +1081,14 @@ def test_render_tiers_windowed_matches_uncapped_on_the_card(dev):
     full = engine.render_image(sample, chunk_rays=TIER_CHUNK, bkg_color=(1.0, 1.0, 1.0))
     engine.set_render_cap(8, window=True)
     counts = (fused_mlp.launches, hash_encode.launches)
+    launches = (sampler.sample_count.launches, segment_march.launches)
     win, stats = engine.render_image_windowed(sample, n_pass=8, chunk_rays=TIER_CHUNK, bkg_color=(1.0, 1.0, 1.0),
                                               eps=0.0)
     assert win["rgb"].is_cuda and stats["clipped_alive"] == 0 and stats["alive_at_end"] == 0
     assert len(stats["pass_budget_rays"]) >= 1
     assert fused_mlp.launches > counts[0] and hash_encode.launches > counts[1]
+    # every window samples through S and marches through C (to its tail)
+    assert sampler.sample_count.launches > launches[0] and segment_march.launches > launches[1]
     for k in ("rgb", "depth", "mask"):
         assert float((win[k] - full[k]).abs().max()) <= WINDOW_TOL * (4 if k == "depth" else 1), k
 
@@ -1194,6 +1197,124 @@ def test_graph_strides_launch_the_fused_sampler(dev, tmp_path):
     assert (sampler.sample_count.launches, sampler.sample_write.launches) == (launches[0] + 2, launches[1] + 2)
     step = trainer.step_graphs[(256, None)]
     assert step.graph is not None and all(int(c) > 0 for c in step.ring["n_valid_pts"])
+
+
+# ------------------------------------ the windowed tier's windows on S and C
+
+# (rays, bitfield, cap, budget) on the 512-slot ladder, no jitter, a tenth of
+# the rays missing: a chunk of the serving cell (16384 rays, cap 8, its
+# 2^17-row budget), the same over a half-occupied grid and a budget that
+# clips windows, the 1024-ray last chunk, a full grid at cap 16
+WINDOW_CASES = {
+    "serve_window": (16384, "scene", 8, 1 << 17),
+    "serve_window_overflow": (16384, "half", 8, 1 << 15),
+    "last_window": (1024, "scene", 8, 8192),
+    "full_window": (1024, "full", 16, 1024 * 16),
+}
+WINDOW_KEYS = SAMPLER_KEYS + ("n_win", "tail")
+
+
+def _window_inputs(name, dev, seed=0):
+    n_rays, kind, cap, budget = WINDOW_CASES[name]
+    vol = ladder_volume()
+    rays_o, rays_d = ladder_rays(vol, n_rays, seed, 0.1, device=dev)
+    return (vol, ladder_bitfield(kind, vol, seed, device=dev), rays_o, rays_d, 512, budget, cap, None), cap
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 63, "past"])
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_sample_compact_window_kernel_matches_plain(dev, name, k):
+    # S's window mode (the windows of rank in (offset, offset + cap]), bit
+    # for bit with its plain version: the stream, the window counts and each
+    # ray's tail z (a clipped ray's: its first dropped window sample)
+    args, cap = _window_inputs(name, dev)
+    offset = 512 if k == "past" else k * cap
+    launches = (sampler.sample_count.launches, sampler.sample_write.launches)
+    got = sampler.sample_compact(*args, offset=offset)
+    assert (sampler.sample_count.launches, sampler.sample_write.launches) == (launches[0] + 1, launches[1] + 1)
+    want = sampler.sample_compact(*args, count=sampler.sample_count_reference, offset=offset)
+    for key in WINDOW_KEYS:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+    n_valid = int(got["n_valid"])
+    if k == "past":
+        assert n_valid == 0 and bool(torch.isinf(got["tail"]).all())
+    elif k in (0, 1):
+        assert n_valid > 0 and bool(torch.isfinite(got["tail"]).any())
+    if name == "serve_window_overflow" and k == 0:
+        assert n_valid > args[5] and bool(((got["cnt"] > 0) & (got["cnt"] < got["n_win"])).any())
+
+
+@pytest.mark.parametrize("name", ["train_step", "serve_chunk"])
+def test_sample_compact_window_at_offset_0_is_the_windowless_call(dev, name):
+    # the window mode at offset 0 keeps the windowless call's stream, and both
+    # the plain version's, bit for bit: at a training step's shape (jitter,
+    # budget overflow) under a cap of every slot, which keeps every sample as
+    # no cap does, and at a serving chunk's under its cap
+    args = _sampler_inputs(name, dev)
+    capped = args[:6] + (args[6] or args[4],) + args[7:]
+    windowless = sampler.sample_compact(*args)
+    window = sampler.sample_compact(*capped, offset=0)
+    want = sampler.sample_compact(*args, count=sampler.sample_count_reference)
+    _sampler_equal(windowless, want)
+    _sampler_equal(window, want)
+    assert bool((window["n_win"] >= window["cnt"]).all())
+    if name == "train_step":
+        assert int(window["n_valid"]) > args[5] and bool((window["n_win"] > window["cnt"]).any())
+
+
+@pytest.mark.parametrize("group", [8, 32])
+@pytest.mark.parametrize("add_inf_z", [False, True])
+def test_segment_march_tail_mode_matches_plain(dev, group, add_inf_z):
+    # kernel C's tail mode on the stream S writes for the serving cell's
+    # second window against the plain version (1e-4, as the sigma mode); an
+    # all +inf tail gives C without a tail bit for bit (the windowless rule)
+    args, cap = _window_inputs("serve_window", dev)
+    out = sampler.sample_compact(*args, offset=cap)
+    z, off, cnt, tail = out["z"], out["off"], out["cnt"], out["tail"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sigma = torch.randn(z.shape, generator=gen, device=dev) * 20
+    rgb = torch.rand((z.shape[0], 3), generator=gen, device=dev)
+    launches = segment_march.launches
+    got = ray_helper.segment_march_fwd(sigma, rgb, z, off, cnt, add_inf_z, None, False, group, tail=tail)
+    assert segment_march.launches == launches + 1
+    want = segment_march_reference(sigma, rgb, z, off, cnt, add_inf_z, tail=tail)
+    for key in ("rgb", "depth", "mask", "trans_end"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-4)
+    plain = ray_helper.segment_march_fwd(sigma, rgb, z, off, cnt, add_inf_z, None, False, group)
+    has_tail = torch.isfinite(tail) & (cnt > 0)
+    assert bool(has_tail.any()) and float((plain["mask"] - got["mask"])[has_tail].abs().max()) > 1e-3
+    no_tail = ray_helper.segment_march_fwd(sigma, rgb, z, off, cnt, add_inf_z, None, False, group,
+                                           tail=torch.full_like(tail, float("inf")))
+    for key in ("rgb", "depth", "mask", "trans_end"):
+        assert torch.equal(no_tail[key], plain[key]), key
+    with pytest.raises(ValueError):  # the tail takes the sigma mode
+        ray_helper.segment_march_fwd(sigma, rgb, z, off, cnt, False, None, False, group, alpha=True, tail=tail)
+
+
+def test_windowless_calls_launch_as_before(dev, tmp_path, monkeypatch):
+    # the exact tier's chunks and a training step pass S no window and C no
+    # tail (the instantiations they launched before the window mode); the
+    # windowed tier's chunks pass both
+    from arcnerf_torch.ops import cuda_lib
+
+    ops, calls = cuda_lib.ops(), []
+    for name in ("sample_count", "sample_write", "segment_march_fwd"):
+        def record(*a, _fn=getattr(ops, name), _name=name, **kw):
+            calls.append((_name, set(kw)))
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, record)
+    engine, sample = _tier_engine(dev)
+    engine.set_render_cap(8)
+    with engine.eager():
+        engine.render_image(sample, chunk_rays=TIER_CHUNK)
+    _graph_trainer(tmp_path, "windowless", 1).train_steps(0, 1)
+    assert {n for n, _ in calls} == {"sample_count", "sample_write", "segment_march_fwd"}
+    assert not any(kw & {"offset", "tail"} for _, kw in calls)
+    del calls[:]
+    engine.set_render_cap(8, window=True)
+    engine.render_image_windowed(sample, n_pass=8, chunk_rays=TIER_CHUNK)
+    assert {n for n, _ in calls} == {"sample_count", "sample_write", "segment_march_fwd"}
+    assert all(("tail" if n == "segment_march_fwd" else "offset") in kw for n, kw in calls)
 
 
 # ------------------------------------------------ NeuS-NGP: K, L, the modes

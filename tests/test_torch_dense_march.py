@@ -52,6 +52,39 @@ def test_scattered_deltas_matches_jax(inf_tail):
           jax_ray_helper.scattered_deltas(jnp.asarray(z), jnp.asarray(mask), inf_tail))
 
 
+@pytest.mark.parametrize("add_inf_z", [False, True])
+@pytest.mark.parametrize("offset", [0, 4, 12])
+@pytest.mark.parametrize("budget", [None, 98])
+def test_segment_march_tail_equals_the_dense_window_march(add_inf_z, offset, budget):
+    # a window of the windowed tier, two ways: the dense march of the grid
+    # (sigma 0 outside the window's samples in the stream, deltas on the
+    # pre-cap mask) and the compacted stream with each ray's tail (kernel
+    # C's tail mode); a 98-row budget clips a ray mid-window, whose last
+    # sample in the stream then marches to its first dropped one
+    from arcnerf_torch.models.base_modules.obj_bound import _cap_pts_per_ray
+    from arcnerf_torch.models.base_modules.sample_compact import compact_sel_aux, window_tail
+
+    z, pre, sigma, radiance = (torch.from_numpy(a) for a in march_inputs(seed=5))
+    n_rays, n_pts = z.shape
+    mask = _cap_pts_per_ray(pre, True, 4, offset=offset)
+    sel, sel_valid, off, cnt = compact_sel_aux(mask, budget or n_rays * n_pts)
+    assert (budget is not None) == bool(((cnt > 0) & (cnt < mask.sum(1))).any())
+    kept = torch.zeros(n_rays * n_pts, dtype=torch.bool)
+    kept[sel[sel_valid]] = True
+    kept = kept.reshape(n_rays, n_pts)
+    want = ray_helper.ray_marching(torch.where(kept, sigma, 0.0), radiance, z, add_inf_z, mask_pts=pre)
+    tail = window_tail(z, pre, offset, cnt)
+    assert bool(torch.isfinite(tail).any()) and bool(torch.isinf(tail).any())
+    got = ray_helper.segment_march_reference(sigma.reshape(-1)[sel], radiance.reshape(-1, 3)[sel], z.reshape(-1)[sel],
+                                             off, cnt, add_inf_z, tail=tail)
+    for k in ("rgb", "depth", "mask"):
+        close(got[k], want[k])
+    # without the tail a window's last sample would take the tail rule
+    plain = ray_helper.segment_march_reference(sigma.reshape(-1)[sel], radiance.reshape(-1, 3)[sel],
+                                               z.reshape(-1)[sel], off, cnt, add_inf_z)
+    assert float((plain["mask"] - want["mask"]).abs().max()) > 1e-3
+
+
 def test_alpha_to_weights_matches_jax():
     alpha = np.random.default_rng(1).uniform(size=(64, 48)).astype(np.float32)
     alpha[:, 5] = 1.0  # a saturated sample: the log's clamp

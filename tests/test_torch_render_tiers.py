@@ -18,6 +18,7 @@ from arcnerf_tpu.render.engine import RenderEngine as JaxRenderEngine
 from arcnerf_tpu.render.engine import _bilinear_upsample as jax_bilinear_upsample
 from arcnerf_torch.models import build_model
 from arcnerf_torch.render.engine import RenderEngine, _bilinear_upsample
+from arcnerf_torch.utils import profiler
 from arcnerf_torch.utils.cfgs import load_configs, update_configs_by_dotlist
 from arcnerf_torch.utils.model_io import state_from_jax
 from tests.test_torch_slice import (CFG, DEPTH_MAX, RGB_MAX, RGB_MEAN, SMALL, jax_model_and_params,
@@ -248,10 +249,19 @@ def test_windows_at_eps_0_compose_the_uncapped_render(engines):
     full = engine.render_image(sample, chunk_rays=CHUNK, bkg_color=WHITE)
     engine.set_render_cap(CAP, window=True)
     # chunks of 8 rays: 8 x 64 samples fit the capped budget's 1024, so no
-    # chunk compacts and the window must zero the samples outside it
+    # chunk compacts and the window must zero the samples outside it. Every
+    # window samples through the fused sampler (sample.window a chunk) and
+    # marches to its tail
     for kwargs in ({"chunk_rays": CHUNK}, {"chunk_rays": CHUNK, "adaptive_budget": False, "alive_frac": 1.0,
                                            "hit_frac": 1.0}, {"chunk_rays": 8}):
-        win, stats = engine.render_image_windowed(sample, n_pass=8, bkg_color=WHITE, eps=0.0, **kwargs)
+        profiler.enable()
+        try:
+            win, stats = engine.render_image_windowed(sample, n_pass=8, bkg_color=WHITE, eps=0.0, **kwargs)
+            record = profiler.collect()
+        finally:
+            profiler.disable()
+        chunks = sum(s["name"] == "render.chunk" for s in record["spans"])
+        assert chunks > 0 and record["counters"].get("sample.window") == chunks
         assert stats["clipped_alive"] == 0 and stats["hit_clipped"] == 0 and stats["alive_at_end"] == 0
         for k in ("rgb", "depth", "mask"):
             torch.testing.assert_close(win[k], full[k], atol=WINDOW_TOL, rtol=0)

@@ -280,7 +280,10 @@ def test_counters_and_reads(runs, case):
         passes = sum(1 for s in rec["spans"] if s["name"] == "render.pass")
         assert reads == {"render.ladder": 1, "render.hit_count": 1, "render.alive": passes - 1,
                          "render.alive_end": 1, "render.background": 1}
-        assert set(counters) <= {"compact.valid", "compact.dropped"}
+        # each chunk of every window samples through the fused sampler's window mode
+        chunks = sum(1 for s in rec["spans"] if s["name"] == "render.chunk")
+        assert set(counters) == {"compact.valid", "compact.dropped", "sample.window"}
+        assert counters["sample.window"] == chunks > 0
     else:
         assert set(reads) == {"train.batch_size", "train.budget_check", "train.validate"}
         assert reads["train.batch_size"] == 2  # at epochs 4 and 8
