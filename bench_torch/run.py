@@ -19,8 +19,23 @@ standard output.
 
 It needs a CUDA device: without one (or with fewer than the cell asks
 for) it exits 2 and prints no result. ``--rehearse`` runs the same path on
-the CPU at the tiny sizes of ``rehearsal.json``, with the kernels' plain
-versions; its numbers are no measurement and its device says so.
+the CPU at tiny sizes, with the kernels' plain versions; its numbers are no
+measurement and its device says so. The tiny sizes come in four layers,
+each a block of dotted keys applied over the one before: ``rehearsal.json``'s
+``config`` block, each key only where the configuration's ``run`` tree
+already holds that path (a key never adds a subtree, so a configuration
+without a hash grid or a volume bound keeps its shape); the configuration
+file's own ``rehearse`` block; ``rehearsal.json``'s ``traffic`` block named
+by the cell's driver; the workload file's own ``rehearse`` block.
+
+What a new cell brings, none of it an edit to a file already here: its
+entries in ``BENCHMARK.json``; ``workloads/<cell>.json``; for a new model,
+its configuration file (with a ``rehearse`` block of its tiny sizes) and
+its plain reference; for new traffic code, ``drivers/<driver>.py``, whose
+``DRIVER(ctx)`` has ``setup``, ``window``, ``traced``, ``free`` and
+``reference``; a reader ``metrics/<metric>.py`` for each new per-layer
+metric. ``Ctx`` assumes no model family: ``ctx.spec``, the NGP reference's
+sizes, is built only when a driver reads it.
 """
 
 import time
@@ -28,6 +43,7 @@ import time
 _START = time.perf_counter()
 
 import argparse  # noqa: E402
+import functools  # noqa: E402
 import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -37,6 +53,9 @@ import sys  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# the JAX package and its stack: a run whose process holds any of them once the window has closed measured more than
+# the port, and prints no result
+REFERENCE_STACK = ("jax", "jaxlib", "flax", "arcnerf_tpu")
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
@@ -53,6 +72,14 @@ def _dotted_set(tree, dotted, value):
     for k in keys[:-1]:
         tree = tree.setdefault(k, {})
     tree[keys[-1]] = value
+
+
+def _dotted_has(tree, dotted):
+    for k in dotted.split("."):
+        if not isinstance(tree, dict) or k not in tree:
+            return False
+        tree = tree[k]
+    return True
 
 
 def load_cell(name, rehearse=False):
@@ -75,8 +102,13 @@ def load_cell(name, rehearse=False):
         with open(os.path.join(HERE, "rehearsal.json")) as f:
             tiny = json.load(f)
         for k, v in tiny["config"].items():
+            if _dotted_has(config["run"], k):
+                _dotted_set(config["run"], k, v)
+        for k, v in config.get("rehearse", {}).items():
             _dotted_set(config["run"], k, v)
         for k, v in tiny["traffic"].get(workload["driver"], {}).items():
+            _dotted_set(workload["traffic"], k, v)
+        for k, v in workload.get("rehearse", {}).items():
             _dotted_set(workload["traffic"], k, v)
     return bench, cell, config, workload
 
@@ -120,13 +152,19 @@ class Ctx:
         import torch
 
         from bench_torch import trace
-        from bench_torch.reference import ngp
 
         self.torch, self.trace = torch, trace
         self.seed = args.seed
         self.config, self.workload, self.device = config["run"], workload, device
         self.model = self.config["model"]
-        self.spec = ngp.Spec(self.model)
+
+    @functools.cached_property
+    def spec(self):
+        """The NGP reference's sizes (``reference.ngp.Spec``), which only
+        a hash-grid configuration has: built when a driver first reads it."""
+        from bench_torch.reference import ngp
+
+        return ngp.Spec(self.model)
 
     @staticmethod
     def note(text):
@@ -191,6 +229,10 @@ def main(argv=None, out=None):
     numbers = driver.reference()
     correct, shown = check.verdict(numbers, workload["limits"])
     correct = correct and failed == 0
+    loaded = sorted(set(REFERENCE_STACK) & {m.split(".")[0] for m in list(sys.modules)})
+    if loaded:
+        print("bench: the run loaded {}, not the port alone; no result".format(", ".join(loaded)), file=sys.stderr)
+        return 3
 
     metrics = {}
     if args.trace:
