@@ -17,4 +17,4 @@ def build_model(cfgs, logger=None, generator=None):
     return FullModel(cfgs, fg_model)
 
 
-from . import nerf_model, neus_model  # noqa: F401, E402
+from . import nerf_model, neus_model, volsdf_model  # noqa: F401, E402

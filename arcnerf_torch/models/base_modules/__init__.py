@@ -10,8 +10,8 @@ import inspect
 
 from ...utils.cfgs import Obj, obj_to_dict
 from ...utils.registry import ENCODER_REGISTRY, GEO_MODEL_REGISTRY, RADIANCE_MODEL_REGISTRY
-from .encoding import HashGridEmbedder, SHEmbedder  # noqa: F401
-from .networks import FusedMLPGeoNet, FusedMLPRadianceNet, GeoNet  # noqa: F401
+from .encoding import FreqEmbedder, HashGridEmbedder, SHEmbedder  # noqa: F401
+from .networks import FusedMLPGeoNet, FusedMLPRadianceNet, GeoNet, RadianceNet  # noqa: F401
 
 
 def to_plain_dict(cfgs):
@@ -28,9 +28,11 @@ def _build(registry, cfgs, default_type, generator):
 
 
 def build_encoder(cfgs, generator=None):
-    """Encoder factory (SHEmbedder, HashGridEmbedder so far)."""
+    """Encoder factory: FreqEmbedder (the default type), SHEmbedder and
+    HashGridEmbedder. No config gives FreqEmbedder(n_freqs=0), the identity,
+    as the JAX factory does."""
     if cfgs is None:
-        raise NotImplementedError("the default FreqEmbedder is not ported yet (ROADMAP Queue 1, item 4)")
+        return FreqEmbedder(input_dim=3, n_freqs=0)
     return _build(ENCODER_REGISTRY, cfgs, "FreqEmbedder", generator)
 
 
@@ -40,5 +42,6 @@ def build_geo_model(cfgs, generator=None):
 
 
 def build_radiance_model(cfgs, generator=None):
-    """Radiance net factory. Only the fused net is ported."""
+    """Radiance net factory: RadianceNet (the default, plain f32) and
+    FusedMLPRadianceNet."""
     return _build(RADIANCE_MODEL_REGISTRY, cfgs, "RadianceNet", generator)

@@ -1,8 +1,8 @@
-"""Input encoders: spherical harmonics and the multi-resolution hash grid
-with kernels B and E.
+"""Input encoders: spherical harmonics, sin/cos frequencies and the
+multi-resolution hash grid with kernels B and E.
 
 Counterpart of ``arcnerf_tpu/models/base_modules/encoding.py`` (sh_basis,
-SHEmbedder, hash_variant_from_cfgs, HashGridEmbedder). ``hash_encode``
+SHEmbedder, FreqEmbedder, hash_variant_from_cfgs, HashGridEmbedder). ``hash_encode``
 replaces the TPU lookup (``_hash_lookup_fused`` and its siblings) with the
 CUDA kernel in ``csrc/hash_encode.cu`` (kernel B) and its table gradient
 with the scatter in ``csrc/hash_encode_bwd.cu`` (kernel E);
@@ -109,6 +109,36 @@ class SHEmbedder(nn.Module):
     def forward(self, dirs):
         out = [dirs] if self.include_input else []
         out.append(sh_basis(dirs, self.n_freqs))
+        return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
+@ENCODER_REGISTRY.register()
+class FreqEmbedder(nn.Module):
+    """sin/cos positional encoding: x -> [x?, sin(f_0 x), cos(f_0 x), sin(f_1
+    x), ...] with f_i = 2^i (``log_sampling``) or evenly spaced in [1,
+    2^(n_freqs - 1)]; n_freqs 0 with the input is the identity. The bands are
+    host numbers (a power of two scales exactly), so the captured step reads
+    no host tensor."""
+
+    def __init__(self, input_dim=3, n_freqs=10, log_sampling=True, include_input=True):
+        super().__init__()
+        self.input_dim, self.n_freqs, self.include_input = input_dim, n_freqs, include_input
+        if n_freqs == 0:
+            self.bands = []
+        elif log_sampling:
+            self.bands = [float(f) for f in 2.0 ** np.linspace(0.0, n_freqs - 1, n_freqs)]
+        else:
+            self.bands = [float(f) for f in np.linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs)]
+
+    @property
+    def out_dim(self):
+        return self.include_input * self.input_dim + self.input_dim * 2 * self.n_freqs
+
+    def forward(self, x):
+        out = [x] if self.include_input else []
+        for f in self.bands:
+            scaled = x * f
+            out += [torch.sin(scaled), torch.cos(scaled)]
         return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
 
 

@@ -1,15 +1,18 @@
-"""Geometry and radiance nets: the plain f32 ``GeoNet`` of the SDF models
-and the fused bf16 MLP nets (instant-ngp style).
+"""Geometry and radiance nets: the plain f32 ``GeoNet`` and ``RadianceNet``
+of the SDF models and the fused bf16 MLP nets (instant-ngp style).
 
-Counterpart of ``GeoNet``, ``_FusedMLP``, ``FusedMLPGeoNet`` and
-``FusedMLPRadianceNet`` in ``arcnerf_tpu/models/base_modules/networks.py``.
+Counterpart of ``GeoNet``, ``RadianceNet``, ``_FusedMLP``, ``FusedMLPGeoNet``
+and ``FusedMLPRadianceNet`` in ``arcnerf_tpu/models/base_modules/networks.py``.
 The fused nets' weights are bias-free ``(in, out)`` parameters named
 ``fc_0 ... fc_{D-1}, fc_out``; their chain runs through ``ops.fused_mlp``
-(kernel A on the card). ``GeoNet`` runs plain PyTorch in f32, so that an
-SDF can differentiate it twice (its normal, then the eikonal loss).
+(kernel A on the card). ``GeoNet`` and ``RadianceNet`` run plain PyTorch in
+f32 (cuBLAS on the card), so that an SDF can differentiate the geometry
+twice (its normal, then the eikonal loss) and the radiance through the
+normal it reads; their layers are ``fc_i`` (in, out), ``fc_i_bias`` and,
+under weight norm, ``wn_i``.
 
 GeoNet(x), FusedMLPGeoNet(x) -> (geo (B, 1), feat (B, W_feat) | None)
-FusedMLPRadianceNet(x, view_dirs, normals, feat) -> rgb (B, 3)
+RadianceNet(x, view_dirs, normals, feat), FusedMLPRadianceNet(...) -> rgb (B, 3)
 """
 
 import math
@@ -98,18 +101,13 @@ class GeoNet(nn.Module):
 
     def layer_weight(self, i):
         """Layer i's effective (in, out) kernel."""
-        w = getattr(self, "fc_{}".format(i))
-        if self.weight_norm:
-            w = w * torch.rsqrt((w * w).sum(0, keepdim=True) + _WN_EPS) * getattr(self, "wn_{}".format(i))
-        return w
+        return _layer_weight(self, i, self.weight_norm)
 
     def forward(self, x):
         x_embed = self.encoder(x)
         h = x_embed
         for i in range(self.D + 1):
-            h = h @ self.layer_weight(i)
-            if self.use_bias:
-                h = h + getattr(self, "fc_{}_bias".format(i))
+            h = _dense(self, i, h, self.layer_weight(i), self.use_bias)
             if i < self.D:
                 h = self.act(h)
                 if i in self.skips:
@@ -120,6 +118,86 @@ class GeoNet(nn.Module):
         if self.out_act is not None:
             geo = self.out_act(geo)
         return geo, feat
+
+
+def _layer_weight(net, i, weight_norm):
+    """Layer i's effective (in, out) kernel: ``fc_i``, under weight norm
+    over each column's norm and times its scale ``wn_i``."""
+    w = getattr(net, "fc_{}".format(i))
+    if weight_norm:
+        w = w * torch.rsqrt((w * w).sum(0, keepdim=True) + _WN_EPS) * getattr(net, "wn_{}".format(i))
+    return w
+
+
+def _dense(net, i, h, w, use_bias):
+    """h @ w, plus layer i's bias in the same GEMM where it has one."""
+    if use_bias:
+        return torch.addmm(getattr(net, "fc_{}_bias".format(i)), h, w)
+    return h @ w
+
+
+@RADIANCE_MODEL_REGISTRY.register()
+class RadianceNet(nn.Module):
+    """Encoders + plain f32 MLP: [pts?, view?, normal?, feat?] -> rgb.
+
+    ``mode`` picks the inputs in p-v-n-f order: the points through
+    ``encoder.pts`` and the normalised view direction through
+    ``encoder.view`` (each the identity when not given), the normal, the
+    feature. ``D`` hidden layers of ``W`` with the activation (ReLU by
+    default), a 3-wide output layer, a sigmoid (``out_act_cfg``); each layer
+    has a bias, and under ``weight_norm`` flax's weight norm. Init as the
+    JAX ``RadianceNet`` (lecun-normal kernels, zero biases, scales 1).
+    The JAX net looks its encoders up with a helper that misses the frozen
+    dict flax turns the config into, so both inputs enter it unencoded
+    (ROADMAP Queue 3); this one encodes them as the config says, as ArcNerf
+    does, and computes the JAX function where both encoders are the
+    identity. SIREN layers are not ported."""
+
+    def __init__(self, mode="vf", W=256, D=8, encoder=None, W_feat_in=256, use_bias=True, act_cfg=None,
+                 use_siren=False, weight_norm=False, out_act_cfg=None, generator=None):
+        super().__init__()
+        from . import build_encoder
+
+        assert len(mode) > 0 and all(m in "pvnf" for m in mode), "mode must be of pvnf"
+        if use_siren:
+            raise NotImplementedError("SIREN layers (use_siren) are not ported yet (ROADMAP Queue 1, item 4)")
+        self.mode, self.W_feat_in, self.D = mode, W_feat_in, D
+        self.use_bias, self.weight_norm = use_bias, weight_norm
+        enc = encoder or {}
+        self.embed_pts = build_encoder(enc.get("pts"), generator) if "p" in mode else None
+        self.embed_view = build_encoder(enc.get("view"), generator) if "v" in mode else None
+        self.act = get_activation(act_cfg)
+        self.out_act = get_activation(out_act_cfg, dict_to_obj({"type": "Sigmoid"}))
+        dim = ((self.embed_pts.out_dim if "p" in mode else 0) + (self.embed_view.out_dim if "v" in mode else 0)
+               + (3 if "n" in mode else 0) + (W_feat_in if "f" in mode and W_feat_in > 0 else 0))
+        for i in range(D + 1):
+            out_dim = 3 if i == D else W
+            std = math.sqrt(1.0 / dim) / _TRUNC_STD
+            w = torch.empty(dim, out_dim)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            setattr(self, "fc_{}".format(i), nn.Parameter(w))
+            if use_bias:
+                setattr(self, "fc_{}_bias".format(i), nn.Parameter(torch.zeros(out_dim)))
+            if weight_norm:
+                setattr(self, "wn_{}".format(i), nn.Parameter(torch.ones(out_dim)))
+            dim = out_dim
+
+    def forward(self, x, view_dirs, normals, geo_feat):
+        inputs = {}
+        if "p" in self.mode:
+            inputs["p"] = self.embed_pts(x)
+        if "v" in self.mode:
+            inputs["v"] = self.embed_view(normalize(view_dirs))
+        if "n" in self.mode:
+            inputs["n"] = normals
+        if "f" in self.mode and self.W_feat_in > 0:
+            inputs["f"] = geo_feat
+        h = torch.cat([inputs[m] for m in "pvnf" if m in inputs], dim=-1)
+        for i in range(self.D + 1):
+            h = _dense(self, i, h, _layer_weight(self, i, self.weight_norm), self.use_bias)
+            if i < self.D:
+                h = self.act(h)
+        return self.out_act(h)
 
 
 class _FusedMLP(nn.Module):

@@ -2,7 +2,8 @@
 
 Counterpart of ``arcnerf_tpu/models/base_modules/obj_bound.py``: the
 per-ray inference sample cap and its windows, the occupancy mask,
-``build_obj_bound``, ``BasicBound`` and ``VolumeBound``'s state, near/far,
+``build_obj_bound``, ``BasicBound``, ``SphereBound``'s near/far, and
+``VolumeBound``'s state, near/far,
 occupancy-culled sampling in ladder order (``keep_order=True``) with the
 training jitter, the window mode of the transmittance-continuation render,
 and ``VolumeBound.optimize``, the occupancy update. Bounds hold static
@@ -21,6 +22,7 @@ cfgs after construction (``RenderEngine.set_render_cap``) calls
 
 import torch
 
+from ...geometry.ray import sphere_ray_intersection
 from ...geometry.volume import Volume, convert_flatten_index_to_xyz_index
 from ...render.ray_helper import get_near_far_from_rays, get_zvals_from_near_far, get_zvals_from_near_far_fix_step
 from ...utils.cfgs import get_value_from_cfgs_field, valid_key_in_cfgs
@@ -67,14 +69,17 @@ def occupied_ladder(volume, bitfield, rays_o, rays_d, near, far, n_pts, generato
 
 def build_obj_bound(cfgs):
     """Pick the bound from cfgs.obj_bound keys: volume > sphere > bitfield >
-    basic. Returns (bound, type). Only the basic and volume bounds are ported."""
+    basic. Returns (bound, type). The basic, sphere and volume bounds are
+    ported; BitfieldBound is not."""
     if not valid_key_in_cfgs(cfgs, "obj_bound"):
         return BasicBound(None), "basic"
     keys = cfgs.obj_bound.keys()
     if "volume" in keys:
         return VolumeBound(cfgs.obj_bound), "volume"
-    if "sphere" in keys or "bitfield" in keys:
-        raise NotImplementedError("SphereBound/BitfieldBound are not ported yet (ROADMAP Queue 1, item 4)")
+    if "sphere" in keys:
+        return SphereBound(cfgs.obj_bound), "sphere"
+    if "bitfield" in keys:
+        raise NotImplementedError("BitfieldBound is not ported yet (ROADMAP Queue 1, item 4)")
     return BasicBound(cfgs.obj_bound), "basic"
 
 
@@ -129,6 +134,22 @@ class BasicBound:
         outside inference the zvals are jittered from ``generator``."""
         jitter = generator if perturb and not inference_only else None
         return get_zvals_from_near_far(near, far, n_pts, inverse_linear=inverse_linear, generator=jitter), None
+
+
+@BOUND_REGISTRY.register()
+class SphereBound(BasicBound):
+    """A sphere (``sphere.radius``, ``sphere.origin``): near and far where a
+    ray crosses it, rays that miss it marked invalid; no occupancy state."""
+
+    def __init__(self, cfgs):
+        super().__init__(cfgs)
+        sphere = cfgs.sphere
+        self.origin = tuple(float(v) for v in get_value_from_cfgs_field(sphere, "origin", (0.0, 0.0, 0.0)))
+        self.radius = float(get_value_from_cfgs_field(sphere, "radius", 1.0))
+
+    def get_near_far_from_rays(self, state, inputs, **kwargs):
+        near, far, _, mask = sphere_ray_intersection(inputs["rays_o"], inputs["rays_d"], self.radius, self.origin)
+        return near, far, mask[:, 0]
 
 
 @BOUND_REGISTRY.register()

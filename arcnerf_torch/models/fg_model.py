@@ -146,10 +146,14 @@ class FgModel(Base3dModel):
             output["n_win_pts"] = mask_pts.sum(1, dtype=torch.int32)
         return output
 
+    def get_n_coarse_sample(self):
+        """The grid's first samples a ray: rays.n_sample (VolSDF: n_eval)."""
+        return self.get_ray_cfgs("n_sample")
+
     def _n_coarse(self, inference_only):
-        """Ladder slots a ray: rays.n_sample, or at inference the bound's
-        eval_n_sample where set (a coarser serving ladder)."""
-        n_coarse = self.get_ray_cfgs("n_sample")
+        """Ladder slots a ray: ``get_n_coarse_sample``, or at inference the
+        bound's eval_n_sample where set (a coarser serving ladder)."""
+        n_coarse = self.get_n_coarse_sample()
         if inference_only:
             n_coarse = int(self.obj_bound.get_optim_cfgs().get("eval_n_sample") or n_coarse)
         return n_coarse
@@ -190,6 +194,12 @@ class FgModel(Base3dModel):
         frame graph counts its chunks' from their static counts."""
         profiler.count_compact(n_valid, self.stream_budget(n_rays, True))
         profiler.count("sample.window" if window else "sample.fused", n_valid.numel())
+
+    def count_step_work(self, n_rays, steps):
+        """Tracing's counters of the work ``steps`` training steps of
+        ``n_rays`` rays do where the shapes alone fix it (the trainer calls
+        it outside the captured step): nothing here (VolSDF counts its
+        sampler's and its normals' points)."""
 
     def stream_sections(self):
         """Whether the fused sampler writes an SDF's sections (SdfModel)

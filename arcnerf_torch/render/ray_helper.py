@@ -5,8 +5,8 @@ on the compacted stream with kernels C and F, and dense compositing on the
 Counterpart of ``arcnerf_tpu/render/ray_helper.py`` (get_rays,
 get_near_far_from_rays, get_zvals_from_near_far,
 get_zvals_from_near_far_fix_step, perturb_interval,
-perturb_interval_with_mask, alpha_to_weights, scattered_deltas,
-ray_marching, segment_march). ``segment_march`` replaces the
+perturb_interval_with_mask, sample_pdf (its sample_cdf folded in), alpha_to_weights,
+scattered_deltas, ray_marching, segment_march). ``segment_march`` replaces the
 JAX scan-and-cumsum formulation with the CUDA kernel in
 ``csrc/segment_march.cu`` and its gradient with ``csrc/segment_march_bwd.cu``;
 ``segment_march_reference`` and ``segment_march_bwd_reference`` are the
@@ -159,6 +159,35 @@ def perturb_interval_with_mask(vals, mask=None, generator=None, rand=None):
     return torch.minimum(torch.maximum(vals, vals[:, 0:1]), last_value)
 
 
+def sample_pdf(bins, weights, n_sample, det=False, eps=1e-5, generator=None):
+    """Inverse-CDF sampling over weighted bins: bins (B, n_pts), weights
+    (B, n_pts - 1) -> (B, n_sample) sorted samples; each weight is raised
+    by ``eps`` before the pdf. ``det`` takes evenly spaced u in [0, 1],
+    else u is drawn from ``generator``. Each u lands in the bin
+    ``searchsorted`` (right) finds in the cdf and is placed linearly inside
+    it (a bin of cdf width under ``eps`` counts as 1). No gradient reaches
+    the search."""
+    weights = weights + eps
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    n_pts = bins.shape[-1]
+    shape = cdf.shape[:-1] + (n_sample,)
+    if det or generator is None:
+        u = torch.linspace(0.0, 1.0, n_sample, dtype=bins.dtype, device=bins.device).expand(shape).contiguous()
+    else:
+        u = torch.rand(shape, generator=generator, dtype=bins.dtype, device=bins.device)
+    inds = torch.searchsorted(cdf.detach().contiguous(), u, right=True)
+    below = (inds - 1).clamp(0, n_pts - 1)
+    above = inds.clamp(0, n_pts - 1)
+    cdf_lo, cdf_hi = cdf.gather(-1, below), cdf.gather(-1, above)
+    bin_lo, bin_hi = bins.gather(-1, below), bins.gather(-1, above)
+    denom = cdf_hi - cdf_lo
+    denom = torch.where(denom < eps, 1.0, denom)
+    t = (u - cdf_lo) / denom
+    return torch.sort(bin_lo + t * (bin_hi - bin_lo), -1).values
+
+
 def alpha_to_weights(alpha):
     """alpha (N_rays, N_p) -> trans_shift (T_i, the transmittance before
     sample i) and weights (T_i * alpha_i), with T_i = prod_{j<i}(1 - alpha_j
@@ -201,8 +230,9 @@ def ray_marching(sigma, radiance, zvals, add_inf_z=False, noise_std=0.0, white_b
     to sigma, drawn from ``generator``. ``bkg_color`` (3,) or (N_rays, 3) is
     composited with the last T; else ``white_bkg`` fills 1 - mask.
 
-    Returns rgb (N_rays, 3), depth, mask (N_rays,) and sigma, radiance,
-    zvals, alpha, trans_shift, weights at the marching length."""
+    Returns rgb (N_rays, 3; None without ``radiance``), depth, mask (N_rays,)
+    and sigma, radiance, zvals, alpha, trans_shift, weights at the marching
+    length."""
     n_rays = zvals.shape[0]
     _sigma, _radiance, _zvals = sigma, radiance, zvals
     if mask_pts is not None:
@@ -225,11 +255,13 @@ def ray_marching(sigma, radiance, zvals, add_inf_z=False, noise_std=0.0, white_b
     trans_shift, weights = alpha_to_weights(alpha)
     depth = (weights * _zvals).sum(-1)
     mask = weights.sum(-1)
-    rgb = (weights[..., None] * _radiance).sum(-2)
-    if bkg_color is not None:
-        rgb = rgb + trans_shift[:, -1:] * bkg_color
-    elif white_bkg:
-        rgb = rgb + (1.0 - mask[:, None])
+    rgb = None
+    if _radiance is not None:
+        rgb = (weights[..., None] * _radiance).sum(-2)
+        if bkg_color is not None:
+            rgb = rgb + trans_shift[:, -1:] * bkg_color
+        elif white_bkg:
+            rgb = rgb + (1.0 - mask[:, None])
     return {"rgb": rgb, "depth": depth, "mask": mask, "sigma": _sigma, "radiance": _radiance, "zvals": _zvals,
             "alpha": alpha, "trans_shift": trans_shift, "weights": weights}
 

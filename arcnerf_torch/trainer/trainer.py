@@ -1,4 +1,5 @@
-"""ArcNerfTrainer: the NGP training loop on one device.
+"""ArcNerfTrainer: the training loop of the NGP, NeuS and VolSDF models on
+one device.
 
 Counterpart of ``arcnerf_tpu/trainer/trainer.py`` (init and data,
 ``init_state``, ``_train_step_impl``, ``_optimize_impl``, ``run_optimize``,
@@ -25,9 +26,11 @@ device tensor, and an explicit occupancy state dict:
   host only at its update cadence; nothing else syncs per step;
 - while tracing is on (``utils.profiler``) a stride or an eager step is
   one ``train.stride`` span, the occupancy update ``train.occupancy``, and
-  the steps' valid samples past the point budget (``compact.dropped``)
-  and an SDF's kept sections (``sdf.normal_pts``; ``sdf.geo_fused`` where
-  the geometry chain runs fused) are counted outside the captured step;
+  the steps' valid samples past the point budget (``compact.dropped``),
+  an SDF's kept sections (``sdf.normal_pts``; ``sdf.geo_fused`` where
+  the geometry chain runs fused) and the work the shapes fix (VolSDF's
+  ``volsdf.eval_pts`` and ``sdf.normal_pts``) are counted outside the
+  captured step;
 - validation renders through the serving path (``RenderEngine``), whose
   render tiers the trainer also hands on (``set_render_cap``,
   ``render_image_fast``, ``render_image_interactive``,
@@ -287,6 +290,7 @@ class ArcNerfTrainer:
                 self.pipeline.record_valid_pts(stats["n_valid_pts"], n_rays)
                 self._count_steps(stats["n_valid_pts"])
             self._count_fused_sampling(1)
+            self._count_step_work(n_rays, 1)
         stats["n_rays"] = n_rays
         return stats
 
@@ -306,6 +310,12 @@ class ArcNerfTrainer:
         step, which a replay does not run in Python)."""
         if profiler.active() and self.model.fg_model.fuses_sampling(self.bound_state.get("fg")):
             profiler.count("sample.fused", steps)
+
+    def _count_step_work(self, n_rays, steps):
+        """The counters of the work whose size the step's shapes fix
+        (``FgModel.count_step_work``: VolSDF's sampler and normal points)."""
+        if profiler.active():
+            self.model.fg_model.count_step_work(n_rays, steps)
 
     def _stride_for(self, epoch, cadences):
         """How many steps can run as one stride without crossing a host-side
@@ -351,6 +361,7 @@ class ArcNerfTrainer:
                     self.pipeline.record_valid_pts(count, n_rays)
                 self._count_steps(seq["n_valid_pts"])
             self._count_fused_sampling(stride)
+            self._count_step_work(n_rays, stride)
         stats = {k: v[-1] for k, v in seq.items()}
         stats["n_rays"] = n_rays
         return stats

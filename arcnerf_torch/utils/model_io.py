@@ -7,7 +7,8 @@ compatibility markers (``meta.hash_variant``, checked at load as the JAX
 package checks it). A training checkpoint adds ``"adam"`` (the Adam state
 per parameter name) and ``"ema"`` when EMA is on. ``state_from_jax`` maps a
 JAX ``FullModel`` param tree and bound state (nested dicts of numpy arrays)
-onto the port's names; ``adam_state_from_jax`` maps the optax Adam state
+onto the port's names (a dense layer's ``bias`` onto ``fc_i_bias``);
+``adam_state_from_jax`` maps the optax Adam state
 (``count``, ``mu``, ``nu``) onto ``torch.optim.Adam``'s, so that a JAX
 training state resumes in the port.
 """
@@ -85,6 +86,8 @@ def _port_name(path):
     names = [_JAX_SCOPES.get(p, p) for p in path]
     if names[-1] == "kernel" or names[-1].endswith("/kernel/scale"):  # a weight norm's scale is its scope (wn_i)
         names = names[:-1]
+    elif names[-1] == "bias":  # a dense layer's bias is fc_i_bias
+        names = names[:-2] + [names[-2] + "_bias"]
     return ".".join(names)
 
 
