@@ -1,4 +1,4 @@
-// The Python binding of the kernels' C launchers (kernels A-N, the sampler): one
+// The Python binding of the kernels' C launchers (kernels A-N and P, the sampler): one
 // function per launcher of launchers.h, called by the wrappers in
 // arcnerf_torch (ops/, models/base_modules/encoding.py, render/ray_helper.py).
 //
@@ -46,6 +46,7 @@ constexpr int64_t kMlpBwdMaxParts = 1024;  // kMaxParts of fused_mlp_bwd.cu: row
 const char* dtype_name(ScalarType t) {
     switch (t) {
         case ScalarType::Float: return "torch.float32";
+        case ScalarType::Double: return "torch.float64";
         case ScalarType::BFloat16: return "torch.bfloat16";
         case ScalarType::Int: return "torch.int32";
         case ScalarType::Long: return "torch.int64";
@@ -338,6 +339,56 @@ std::tuple<Tensor, Tensor, Tensor> geo_chain_bwd(const Tensor& enc, const Tensor
     return {d_enc, dw1, dw2};
 }
 
+// ------------------------------------------------------------ P
+
+// x f32 (any shape, contiguous) -> softplus(beta x) / beta, the three-op
+// form's values, in x's shape (kernel P's forward).
+Tensor softplus_fwd(const Tensor& x, double beta) {
+    const char* name = "softplus_fwd";
+    require(name, x, ScalarType::Float, x);
+    c10::cuda::CUDAGuard guard(x.device());
+    Tensor out = at::empty(x.sizes(), x.options());
+    if (x.numel() > 0) {
+        check_status(name, arcnerf_softplus_fwd(x.data_ptr(), x.numel(), static_cast<float>(beta), out.data_ptr(),
+                                                stream_of(x)));
+    }
+    return out;
+}
+
+// x and d_out of one numel -> d_x in x's shape: the forward's gradient.
+Tensor softplus_bwd(const Tensor& x, const Tensor& d_out, double beta) {
+    const char* name = "softplus_bwd";
+    require(name, x, ScalarType::Float, x);
+    require(name, d_out, ScalarType::Float, x);
+    require_numel(name, d_out, x.numel(), "d_out");
+    c10::cuda::CUDAGuard guard(x.device());
+    Tensor d_x = at::empty(x.sizes(), x.options());
+    if (x.numel() > 0) {
+        check_status(name, arcnerf_softplus_bwd(x.data_ptr(), d_out.data_ptr(), x.numel(), static_cast<float>(beta),
+                                                d_x.data_ptr(), stream_of(x)));
+    }
+    return d_x;
+}
+
+// x, d_out and gg (the gradient of d_x) of one numel -> (g_x, g_dout) in
+// x's shape: the backward's gradients (kernel P's double backward).
+std::tuple<Tensor, Tensor> softplus_bwd2(const Tensor& x, const Tensor& d_out, const Tensor& gg, double beta) {
+    const char* name = "softplus_bwd2";
+    require(name, x, ScalarType::Float, x);
+    require(name, d_out, ScalarType::Float, x);
+    require(name, gg, ScalarType::Float, x);
+    require_numel(name, d_out, x.numel(), "d_out");
+    require_numel(name, gg, x.numel(), "gg");
+    c10::cuda::CUDAGuard guard(x.device());
+    Tensor g_x = at::empty(x.sizes(), x.options()), g_dout = at::empty(x.sizes(), x.options());
+    if (x.numel() > 0) {
+        check_status(name, arcnerf_softplus_bwd2(x.data_ptr(), d_out.data_ptr(), gg.data_ptr(), x.numel(),
+                                                 static_cast<float>(beta), g_x.data_ptr(), g_dout.data_ptr(),
+                                                 stream_of(x)));
+    }
+    return {g_x, g_dout};
+}
+
 // ------------------------------------------------------------ C and F
 
 // The compacted stream sigma (K,), rgb (K, 3), z (K,) f32 and per ray off,
@@ -622,7 +673,7 @@ std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>, std::optional<Tensor>>
 }  // namespace
 
 PYBIND11_MODULE(ARCNERF_MODULE, m) {
-    m.doc() = "arcnerf_torch's CUDA kernels A-N and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
+    m.doc() = "arcnerf_torch's CUDA kernels A-N, P and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
     namespace py = pybind11;
     m.def("fused_mlp_fwd", &fused_mlp_fwd, py::arg("x"), py::arg("packed"), py::arg("din_pad"), py::arg("n_hidden"),
           py::arg("d_out"), py::arg("dout_pad"), py::arg("save_pre"));
@@ -658,4 +709,7 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
           py::arg("beta"));
     m.def("geo_chain_bwd", &geo_chain_bwd, py::arg("enc"), py::arg("w1"), py::arg("w2"), py::arg("d_out"),
           py::arg("d_g"), py::arg("n_valid"), py::arg("beta"));
+    m.def("softplus_fwd", &softplus_fwd, py::arg("x"), py::arg("beta"));
+    m.def("softplus_bwd", &softplus_bwd, py::arg("x"), py::arg("d_out"), py::arg("beta"));
+    m.def("softplus_bwd2", &softplus_bwd2, py::arg("x"), py::arg("d_out"), py::arg("gg"), py::arg("beta"));
 }

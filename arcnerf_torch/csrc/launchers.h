@@ -1,4 +1,4 @@
-// The kernels' C launchers (kernels A-N, the sampler), declared once for
+// The kernels' C launchers (kernels A-N and P, the sampler), declared once for
 // the kernels that define them and for the Python binding that calls them
 // (bindings.cpp): a launcher whose definition drifts from this
 // declaration does not compile. Plain C++, no CUDA types.
@@ -79,5 +79,10 @@ int arcnerf_geo_chain_bwd(const void* enc, long long n_rows, const void* n_valid
                           void* parts, void* stream);
 long long arcnerf_geo_chain_bwd_parts(long long n_rows);
 long long arcnerf_geo_chain_part_size();
+// P, softplus.cu: softplus(beta x) / beta, its backward and its double backward, elementwise over n values
+int arcnerf_softplus_fwd(const void* x, long long n, float beta, void* out, void* stream);
+int arcnerf_softplus_bwd(const void* x, const void* d_out, long long n, float beta, void* d_x, void* stream);
+int arcnerf_softplus_bwd2(const void* x, const void* d_out, const void* gg, long long n, float beta, void* g_x,
+                          void* g_dout, void* stream);
 
 }  // extern "C"

@@ -8,15 +8,21 @@ identity, selected from a cfg dict/Obj with a ``type`` field.
 import torch
 import torch.nn.functional as F
 
+from ...ops import softplus as ops_softplus
 from ...ops.trunc_exp import trunc_exp
 from ...utils.cfgs import Obj, obj_to_dict
 
 
 def softplus(beta):
     """softplus(beta x) / beta, the callable carrying its ``beta`` (the
-    fused geometry chain reads it: ``sdf_model.fuses_geo_chain``)."""
+    fused geometry chain reads it: ``sdf_model.fuses_geo_chain``). A CPU
+    tensor takes the three ops; any other goes through kernel P
+    (``ops.softplus``: the same values in one pass, each derivative in one
+    pass), which takes f32 CUDA tensors and raises on any other dtype."""
     def act(x):
-        return F.softplus(beta * x) / beta
+        if x.is_cpu:
+            return F.softplus(beta * x) / beta
+        return ops_softplus.Softplus.apply(x, beta)
 
     act.beta = beta
     return act

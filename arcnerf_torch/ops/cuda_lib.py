@@ -61,6 +61,9 @@ _SIGNATURES = {
     "arcnerf_hash_dx_bwd": [_P, _LL, _P, _P, _P, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P, _P],
     "arcnerf_geo_chain_fwd": [_P, _LL, _P, _P, _P, _FV, _P, _P, _P],
     "arcnerf_geo_chain_bwd": [_P, _LL, _P, _P, _P, _P, _P, _FV, _P, _P, _P, _P, _P],
+    "arcnerf_softplus_fwd": [_P, _LL, _FV, _P, _P],
+    "arcnerf_softplus_bwd": [_P, _P, _LL, _FV, _P, _P],
+    "arcnerf_softplus_bwd2": [_P, _P, _P, _LL, _FV, _P, _P, _P],
 }
 
 _ops = None

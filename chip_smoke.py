@@ -98,8 +98,16 @@ Usage: python3 chip_smoke.py [--profile]   (from the root of the repository)
    reduce) at a step's 2^18 rows, M also at an occupancy update's 2^20
    points, against their plain versions and autograd's create-graph
    chain (the library yardstick), each beside its f32 FMA bound;
-   then 48 eager steps of configs/expr/synthetic_neus_ngp.yaml (each
-   kernel's launches a step, the loss finite).
+   kernel P (the SDF nets' softplus, ``ops.softplus``): its forward at the
+   VolSDF sampler's GeoNet call (1024 x 128 points, 256 wide) bit for bit
+   the card's three ops, its backward at a step's training points (1024 x
+   98) bit for bit autograd's and its double backward within 1e-6 of
+   autograd's, each beside its bound (bytes), its plain version and the
+   three ops' or autograd's time; then 48 eager steps of
+   configs/expr/synthetic_neus_ngp.yaml (each kernel's launches a step,
+   the loss finite), and 4 eager steps of the VolSDF lego recipe
+   (configs/expr/NeRF/lego/nerf_lego_volsdf.yaml at its 1024 rays and
+   widths, procedural views): kernel P's launches a step, the loss finite.
    The graph phase, last (its draws do not always repeat on the card, so
    a failure there is printed after the kernel table and still exits
    non-zero): (a) the same 400 steps again with
@@ -2187,6 +2195,77 @@ def compare_geo_chain(dev, gen):
     return rows, stats
 
 
+# kernel P's shapes: the VolSDF sampler's GeoNet call (1024 rays x 128
+# points, 256 wide) and a step's training points (1024 rays x 98, 256 wide)
+P_SAMPLER, P_STEP = (1024 * 128, 256), (1024 * 98, 256)
+
+
+def compare_softplus(dev, gen):
+    """Kernel P (forward at the sampler's call, backward and double backward
+    at a step's training points) against the card's three ops and
+    autograd's derivatives of them (the library yardstick: what the step
+    ran before it), beside its bound (bytes) and its plain version."""
+    from arcnerf_torch.ops import softplus as sp
+
+    beta = 100.0
+    F = torch.nn.functional
+    rows, stats = [], {}
+
+    def inputs(shape):
+        x = (torch.rand(shape, generator=gen, device=dev) * 140.0 - 100.0) / beta
+        return x, torch.randn(shape, generator=gen, device=dev), torch.randn(shape, generator=gen, device=dev)
+
+    x, _, _ = inputs(P_SAMPLER)
+    out = sp.softplus_fwd(x, beta)
+    if not (torch.equal(out, F.softplus(beta * x) / beta) and torch.equal(out, sp.softplus_fwd_reference(x, beta))):
+        raise AssertionError("softplus_fwd: not the three ops' values bit for bit")
+    n = x.numel()
+    entry = {"max_abs_err": 0.0, "ms": time_ms(lambda: sp.softplus_fwd(x, beta)),
+             "plain_ms": time_ms(lambda: sp.softplus_fwd_reference(x, beta), 5),
+             "graph_ms": graph_ms(lambda: sp.softplus_fwd(x, beta)),
+             "library_ms": time_ms(lambda: F.softplus(beta * x) / beta)}
+    suffix = add_bound(entry, [bound(n * 8, 0, F32_FLOP_S)])
+    rows.append("P softplus_fwd (the sampler's call: {} values): bit for bit the three ops, kernel {:.4f} ms (CUDA "
+                "graph {:.4f} ms), plain {:.4f} ms, three ops {:.4f} ms, {}".format(
+                    n, entry["ms"], entry["graph_ms"], entry["plain_ms"], entry["library_ms"], suffix))
+    stats["P"] = entry
+    del x, out
+
+    x, d_out, gg = inputs(P_STEP)
+    n = x.numel()
+    xr, dr = x.clone().requires_grad_(True), d_out.clone().requires_grad_(True)
+    out = F.softplus(beta * xr) / beta
+    (d_x,) = torch.autograd.grad(out, xr, dr, create_graph=True)
+    g_x, g_dout = torch.autograd.grad(d_x, (xr, dr), gg, retain_graph=True)
+    got = sp.softplus_bwd(x, d_out, beta)
+    if not torch.equal(got, d_x):
+        raise AssertionError("softplus_bwd: not autograd's gradient bit for bit")
+    entry = {"max_abs_err": 0.0, "ms": time_ms(lambda: sp.softplus_bwd(x, d_out, beta)),
+             "plain_ms": time_ms(lambda: sp.softplus_bwd_reference(x, d_out, beta), 5),
+             "graph_ms": graph_ms(lambda: sp.softplus_bwd(x, d_out, beta)),
+             "library_ms": time_ms(lambda: torch.autograd.grad(out, xr, dr, retain_graph=True), 5)}
+    suffix = add_bound(entry, [bound(n * 12, 0, F32_FLOP_S)])
+    rows.append("P softplus_bwd (a step's training points: {} values): bit for bit autograd's, kernel {:.4f} ms "
+                "(CUDA graph {:.4f} ms), plain {:.4f} ms, autograd's three backwards {:.4f} ms, {}".format(
+                    n, entry["ms"], entry["graph_ms"], entry["plain_ms"], entry["library_ms"], suffix))
+    stats["P"]["backward"] = entry
+    gx, gd = sp.softplus_bwd2(x, d_out, gg, beta)
+    err = max(check_scaled("softplus_bwd2 g_x", gx, g_x, 1e-6), check_scaled("softplus_bwd2 g_dout", gd, g_dout, 1e-6))
+    entry = {"max_abs_err": err, "ms": time_ms(lambda: sp.softplus_bwd2(x, d_out, gg, beta)),
+             "plain_ms": time_ms(lambda: sp.softplus_bwd2_reference(x, d_out, gg, beta), 5),
+             "graph_ms": graph_ms(lambda: sp.softplus_bwd2(x, d_out, gg, beta)),
+             "library_ms": time_ms(lambda: torch.autograd.grad(d_x, (xr, dr), gg, retain_graph=True), 5),
+             "equal": bool(torch.equal(gx, g_x) and torch.equal(gd, g_dout))}
+    suffix = add_bound(entry, [bound(n * 20, 0, F32_FLOP_S)])
+    rows.append("P softplus_bwd2 (the same values): max abs err {:.3e} (tol 1e-6 x max|ref|; bit for bit: {}), "
+                "kernel {:.4f} ms (CUDA graph {:.4f} ms), plain {:.4f} ms, autograd's double backward {:.4f} ms, "
+                "{}".format(err, entry["equal"], entry["ms"], entry["graph_ms"], entry["plain_ms"],
+                            entry["library_ms"], suffix))
+    stats["P"]["double_backward"] = entry
+    stats["P"]["max_abs_err"] = err
+    return rows, stats
+
+
 def neus_train():
     """The NeuS-NGP recipe (configs/expr/synthetic_neus_ngp.yaml) for
     NEUS_STEPS eager steps through ``arcnerf_torch.train``, then a render
@@ -2221,6 +2300,52 @@ def neus_train():
                 key, launches[key], NEUS_STEPS))
     shutil.rmtree(expr)
     return launches
+
+
+VOLSDF_STEPS = 4  # eager steps of the VolSDF lego recipe
+
+
+def volsdf_train():
+    """The VolSDF lego recipe (configs/expr/NeRF/lego/nerf_lego_volsdf.yaml,
+    1024 rays, the 8 x 256 GeoNet; its dataset swapped for procedural views
+    over white) for VOLSDF_STEPS eager steps after one warm-up step: kernel
+    P's launches a step (its forward for each of the sampler's rounds and
+    the step's points, a hidden layer each; its backward for the normal and
+    the loss; its double backward for the eikonal loss), the loss finite."""
+    from arcnerf_torch.ops import softplus as sp
+    from arcnerf_torch.trainer import ArcNerfTrainer
+    from arcnerf_torch.utils.cfgs import dict_to_obj, load_configs, update_configs_by_dotlist
+
+    expr = os.path.join(WORK_DIR, "volsdf")
+    cfgs = load_configs(os.path.join(ROOT, "configs/expr/NeRF/lego/nerf_lego_volsdf.yaml"))
+    cfgs.dataset = dict_to_obj({"train": {"type": "Synthetic", "n_imgs": 4, "wh": [128, 128], "cam_radius": 2.5,
+                                          "white_bkg": True, "center_pixel": True,
+                                          "scheduler": {"ray_sample": {"mode": "random", "cross_view": True}}}})
+    trainer = ArcNerfTrainer(update_configs_by_dotlist(cfgs, ["--device", "cuda:0", "--dir.expr_dir", expr]))
+    trainer.train_steps(0, 1)
+    fns = {"softplus_fwd": sp.softplus_fwd, "softplus_bwd": sp.softplus_bwd, "softplus_bwd2": sp.softplus_bwd2}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(1, VOLSDF_STEPS + 1):
+        trainer.train_steps(epoch, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {name: fn.launches / VOLSDF_STEPS for name, fn in fns.items()}
+    losses = torch.stack(trainer.loss_history).float().cpu()
+    print("VolSDF lego {} eager steps ({} rays, GeoNet {} x {}, n_iter {}): wall {:.1f} s; kernel P launches per step "
+          "{}; loss first {:.4f} last {:.4f}, all finite {}".format(
+              VOLSDF_STEPS, trainer.pipeline.n_rays, trainer.model.fg_model.geo_net.D, cfgs.model.geometry.W,
+              trainer.model.fg_model.n_iter, wall, per_step, float(losses[0]), float(losses[-1]),
+              bool(torch.isfinite(losses).all())))
+    if not torch.isfinite(losses).all():
+        raise AssertionError("VolSDF training: a loss is not finite")
+    if min(per_step.values()) <= 0:
+        raise AssertionError("VolSDF training: kernel P launched {} times a step".format(per_step))
+    del trainer
+    shutil.rmtree(expr)
+    return sum(fn.launches for fn in fns.values()), per_step
 
 
 def main():
@@ -2313,14 +2438,18 @@ def main():
     rows, neus_stats = compare_hash_dx(dev, gen)
     section_rows, section_stats = compare_sections(dev, gen)
     geo_rows, geo_stats = compare_geo_chain(dev, gen)
-    for row in rows + section_rows + geo_rows:
+    softplus_rows, softplus_stats = compare_softplus(dev, gen)
+    for row in rows + section_rows + geo_rows + softplus_rows:
         print(row)
     stats.update(neus_stats)
     stats.update(geo_stats)
+    stats.update(softplus_stats)
     stats["S"]["sections"] = section_stats["S"]
     stats["C"]["alpha_mode"], stats["F"]["alpha_mode"] = section_stats["C"], section_stats["F"]
     neus_launches = neus_train()
     launches.update({k: neus_launches[k] for k in "KLMN"})
+    torch.cuda.empty_cache()
+    launches["P"], stats["P"]["launches_per_step"] = volsdf_train()
     torch.cuda.empty_cache()
 
     # the graph phase last: its draws do not always repeat on the card
@@ -2361,9 +2490,11 @@ def main():
         "M": ("geo_chain_fwd", "arcnerf_torch/csrc/geo_chain.cu",
               "none (jax.grad of GeoNet's sdf, arcnerf_tpu/models/sdf_model.py geo_with_grad)"),
         "N": ("geo_chain_bwd", "arcnerf_torch/csrc/geo_chain.cu", "none (jax.grad of that jax.grad)"),
+        "P": ("softplus", "arcnerf_torch/csrc/softplus.cu",
+              "none (XLA fuses the activation and its derivatives, arcnerf_tpu/models/base_modules/activation.py)"),
     }
     kernels = [dict(name=meta[k][0], route="cuda", source=meta[k][1], replaces=meta[k][2], launches=launches[k],
-                    **stats[k]) for k in "ABCDEFGHIJSKLMN"]
+                    **stats[k]) for k in "ABCDEFGHIJSKLMNP"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     if graph_failure is not None:

@@ -1741,3 +1741,208 @@ def test_neus_exact_frames_replay_the_frame_graphs_bit_for_bit(dev):
         assert counters.get("render.captures", 0) == (1 if i == 0 else 0) and counters["render.replays"] == 5
         for k in ("compact.valid", "sdf.normal_pts", "sample.fused"):
             assert counters[k] == eager_counters[k], k
+
+
+# ------------------------------------------- P: the softplus kernels
+
+def _softplus_inputs(dev, n, beta, seed, offset=0):
+    """x, d_out, gg of n f32 values (each ``offset`` values into its
+    storage: 4-byte offsets take the element route): beta x from -100 to
+    120 (the threshold 20 and exp's overflow crossed), an eighth near 0,
+    up to 1000 values within 5e-3 of the threshold."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.rand(n + offset, generator=gen, device=dev) * 220.0 - 100.0
+    y[: n // 8] = torch.randn(n // 8, generator=gen, device=dev) * 3.0
+    k = min(1000, n - n // 8)
+    y[n // 8: n // 8 + k] = 20.0 + (torch.arange(k, device=dev) - 500.0) * 1e-5
+    x = (y / beta)[offset:]
+    d_out = torch.randn(n + offset, generator=gen, device=dev)[offset:]
+    gg = torch.randn(n + offset, generator=gen, device=dev)[offset:]
+    return x, d_out, gg
+
+
+def _softplus_autograd(x, d_out, gg, beta):
+    """The three-op form through autograd: (out, d_x, g_x, g_dout)."""
+    xr, dr = x.detach().clone().requires_grad_(True), d_out.detach().clone().requires_grad_(True)
+    out = torch.nn.functional.softplus(beta * xr) / beta
+    (d_x,) = torch.autograd.grad(out, xr, dr, create_graph=True)
+    g_x, g_dout = torch.autograd.grad(d_x, (xr, dr), gg)
+    return out.detach(), d_x.detach(), g_x, g_dout
+
+
+@pytest.mark.parametrize("beta", [100.0, 1.0])
+@pytest.mark.parametrize("n,offset", [((1 << 22) + 3, 0), ((1 << 22) + 3, 1), (4097, 0), (5, 0), (0, 0)])
+def test_softplus_kernels_are_the_three_ops(dev, beta, n, offset):
+    # kernel P against the card's three ops and autograd's derivatives of
+    # them: the forward and the backward bit for bit, the double backward
+    # within 1e-6 of each value (its exp, log1p and divisions are the same
+    # library calls in the same order)
+    from arcnerf_torch.ops import softplus as sp
+
+    x, d_out, gg = _softplus_inputs(dev, n, beta, n + offset, offset)
+    launches = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+    out = sp.softplus_fwd(x, beta)
+    d_x = sp.softplus_bwd(x, d_out, beta)
+    g_x, g_dout = sp.softplus_bwd2(x, d_out, gg, beta)
+    torch.cuda.synchronize()
+    assert (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches) == tuple(
+        l + (n > 0) for l in launches)
+    want = _softplus_autograd(x, d_out, gg, beta)
+    assert torch.equal(out, torch.nn.functional.softplus(beta * x) / beta) and torch.equal(out, want[0])
+    assert torch.equal(d_x, want[1])
+    torch.testing.assert_close(g_x, want[2], rtol=1e-6, atol=0)
+    torch.testing.assert_close(g_dout, want[3], rtol=1e-6, atol=0)
+
+
+def test_softplus_function_takes_create_graph(dev):
+    # ``activation.softplus`` on an f32 CUDA tensor: the Function's values
+    # and both derivative orders as autograd's of the three ops, one launch
+    # of each kernel
+    from arcnerf_torch.models.base_modules.activation import softplus
+    from arcnerf_torch.ops import softplus as sp
+
+    x, d_out, gg = _softplus_inputs(dev, 1 << 20, 100.0, 7)
+    want = _softplus_autograd(x, d_out, gg, 100.0)
+    launches = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+    xr, dr = x.clone().requires_grad_(True), d_out.clone().requires_grad_(True)
+    out = softplus(100.0)(xr)
+    (d_x,) = torch.autograd.grad(out, xr, dr, create_graph=True)
+    g_x, g_dout = torch.autograd.grad(d_x, (xr, dr), gg)
+    assert (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches) == tuple(
+        l + 1 for l in launches)
+    assert torch.equal(out, want[0]) and torch.equal(d_x, want[1])
+    torch.testing.assert_close(g_x, want[2], rtol=1e-6, atol=0)
+    torch.testing.assert_close(g_dout, want[3], rtol=1e-6, atol=0)
+    with torch.no_grad():
+        assert torch.equal(softplus(100.0)(x), want[0])
+    for dtype in (torch.float64, torch.bfloat16):  # the kernel takes f32 alone: others raise, naming their dtype
+        with pytest.raises(ValueError, match="softplus_fwd: .* {} ".format(dtype)):
+            softplus(100.0)(x.to(dtype))
+    assert sp.softplus_fwd.launches == launches[0] + 2
+
+
+def test_softplus_kernels_replay_from_a_cuda_graph(dev):
+    # the three kernels captured at fixed sizes: replays with new inputs
+    # equal eager calls bit for bit
+    from arcnerf_torch.ops import softplus as sp
+
+    n = (1 << 20) + 1
+    static = list(_softplus_inputs(dev, n, 100.0, 1))
+
+    def run():
+        x, d_out, gg = static
+        return (sp.softplus_fwd(x, 100.0), sp.softplus_bwd(x, d_out, 100.0)) + tuple(
+            sp.softplus_bwd2(x, d_out, gg, 100.0))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (2, 3):
+        for t, v in zip(static, _softplus_inputs(dev, n, 100.0, seed)):
+            t.copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, run()):
+            assert torch.equal(a, b)
+
+
+def _volsdf_geo_net(dev):
+    """The lego recipe's VolSDF GeoNet (8 x 256, skip at 4, softplus beta
+    100, weight norm) on the card."""
+    import os
+
+    from arcnerf_torch.models.base_modules import build_geo_model
+    from arcnerf_torch.utils.cfgs import load_configs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfgs = load_configs(os.path.join(root, "configs/expr/NeRF/lego/nerf_lego_volsdf.yaml"))
+    return build_geo_model(cfgs.model.geometry, torch.Generator().manual_seed(0)).to(dev)
+
+
+def test_a_volsdf_geonet_launches_kernel_p_with_the_three_ops_values(dev):
+    # sdf, feature and normal bit for bit those of the net with the three
+    # ops as its activation (the sampler's samples rest on them); each
+    # hidden layer launches the forward and, for the normal, the backward;
+    # the eikonal loss's double backward launches P's once a layer; the
+    # leaves' gradients within 1e-5 of the norm (two gradients of a
+    # layer's input meet after the multiply by beta, not before it)
+    from arcnerf_torch.models import sdf_model
+    from arcnerf_torch.ops import softplus as sp
+
+    net = _volsdf_geo_net(dev)
+    pts = torch.rand((4096, 3), generator=torch.Generator(device=dev).manual_seed(0), device=dev) * 2.0 - 1.0
+    beta, layers = net.act.beta, net.D
+
+    def run():
+        sdf, feat, normal = sdf_model.geo_with_grad(net, pts, create_graph=True)
+        loss = sdf.abs().mean() + feat.square().mean() + ((normal.norm(dim=-1) - 1.0) ** 2).mean()
+        return (sdf, feat, normal), torch.autograd.grad(loss, list(net.parameters()))
+
+    launches = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+    with torch.no_grad():
+        sampled = net(pts)[0]
+    assert sp.softplus_fwd.launches == launches[0] + layers
+    got, grads = run()
+    torch.cuda.synchronize()
+    assert (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches) == (
+        launches[0] + 2 * layers, launches[1] + 2 * layers, launches[2] + layers)
+    net.act = lambda x: torch.nn.functional.softplus(beta * x) / beta
+    with torch.no_grad():
+        assert torch.equal(sampled, net(pts)[0])
+    want, want_grads = run()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(grads, want_grads):
+        assert float((a - b).norm()) <= 1e-5 * float(b.norm())
+
+
+def test_volsdf_graph_strides_count_kernel_p_and_ngp_steps_launch_none(dev, tmp_path):
+    # a VolSDF trainer's strided steps on the card: act.softplus_fused counts
+    # the sampler's and the step's GeoNet points times the hidden widths;
+    # the kernels launch at the warm-up step and the capture only. An NGP
+    # step launches none of them
+    import os
+
+    from arcnerf_torch.ops import softplus as sp
+    from arcnerf_torch.trainer import ArcNerfTrainer
+    from arcnerf_torch.utils import profiler
+    from arcnerf_torch.utils.cfgs import load_configs, update_configs_by_dotlist
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = ["--model.rays.n_eval", "16", "--model.rays.n_sample", "16", "--model.rays.n_importance", "8",
+            "--device", "cuda:0", "--dataset.train.n_imgs", "2", "--dataset.train.wh", "[16,16]",
+            "--dataset.val.n_imgs", "1", "--dataset.val.wh", "[16,16]", "--n_rays", "64",
+            "--model.obj_bound.sphere.radius", "2.0", "--dir.expr_dir", str(tmp_path / "volsdf"),
+            "--progress.scan_steps", "4"]
+    trainer = ArcNerfTrainer(update_configs_by_dotlist(
+        load_configs(os.path.join(root, "configs/expr/synthetic_volsdf.yaml")), argv))
+    fg = trainer.model.fg_model
+    launches = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+    profiler.enable()
+    try:
+        trainer.train_steps(0, 4)
+        trainer.train_steps(4, 4)
+        counters = profiler.collect()["counters"]
+    finally:
+        profiler.disable()
+    torch.cuda.synchronize()
+    width = sum(getattr(fg.geo_net, "fc_{}".format(i)).shape[1] for i in range(fg.geo_net.D))
+    assert width > 0
+    assert counters["act.softplus_fused"] == 8 * 64 * (fg.n_eval * fg.n_iter + fg.n_samples() + 2) * width
+    # the warm-up step and the capture: the sampler's n_iter forwards and
+    # the step's forward, the normal's backward and the loss's backwards
+    d = fg.geo_net.D
+    assert sp.softplus_fwd.launches - launches[0] == 2 * (fg.n_iter + 1) * d
+    assert sp.softplus_bwd2.launches - launches[2] == 2 * d
+    assert all(torch.isfinite(torch.stack(trainer.loss_history)))
+    before = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+    ngp = _graph_trainer(tmp_path, "ngp", 1)
+    for e in range(2):
+        ngp.train_steps(e, 1)
+    torch.cuda.synchronize()
+    assert (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches) == before
