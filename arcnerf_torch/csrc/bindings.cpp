@@ -1,6 +1,9 @@
 // The Python binding of the kernels' C launchers (kernels A-N and P, the sampler): one
 // function per launcher of launchers.h, called by the wrappers in
-// arcnerf_torch (ops/, models/base_modules/encoding.py, render/ray_helper.py).
+// arcnerf_torch (ops/, models/base_modules/encoding.py, render/ray_helper.py);
+// and two queries of the CUDA graph a stream is capturing, which the
+// program's spans read to map a graph's kernels to the spans that launched
+// them (utils/profiler.py).
 //
 // Each function checks its tensors (CUDA device, type, contiguity, shape,
 // 16-byte alignment where the kernel moves 16-byte chunks) and raises
@@ -670,10 +673,53 @@ std::tuple<Tensor, Tensor, Tensor, std::optional<Tensor>, std::optional<Tensor>>
     return {z, pts, dirs, len, tail};
 }
 
+// ------------------------------------------------------------ graph capture
+
+// The graph that the current stream of `device` is capturing; raises unless
+// it is capturing.
+cudaGraph_t capturing_graph(const char* name, int64_t device) {
+    cudaStream_t stream = c10::cuda::getCurrentCUDAStream(static_cast<c10::DeviceIndex>(device)).stream();
+    cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+    cudaGraph_t graph = nullptr;
+    check_status(name, cudaStreamGetCaptureInfo(stream, &status, nullptr, &graph));
+    TORCH_CHECK_VALUE(status == cudaStreamCaptureStatusActive && graph != nullptr, name,
+                      ": the current stream of cuda:", device, " is not capturing a graph");
+    return graph;
+}
+
+// The nodes the graph being captured holds so far: the position the next
+// captured operation takes.
+int64_t capture_node_count(int64_t device) {
+    size_t n = 0;
+    check_status("capture_node_count",
+                 cudaGraphGetNodes(capturing_graph("capture_node_count", device), nullptr, &n));
+    return static_cast<int64_t>(n);
+}
+
+// The positions, in the order the capture made them, of the graph's nodes
+// that a device trace shows as operations: kernels, memcpys and memsets.
+std::vector<int64_t> capture_device_nodes(int64_t device) {
+    const char* name = "capture_device_nodes";
+    cudaGraph_t graph = capturing_graph(name, device);
+    size_t n = 0;
+    check_status(name, cudaGraphGetNodes(graph, nullptr, &n));
+    std::vector<cudaGraphNode_t> nodes(n);
+    check_status(name, cudaGraphGetNodes(graph, nodes.data(), &n));
+    std::vector<int64_t> out;
+    for (size_t i = 0; i < n; ++i) {
+        cudaGraphNodeType type;
+        check_status(name, cudaGraphNodeGetType(nodes[i], &type));
+        if (type == cudaGraphNodeTypeKernel || type == cudaGraphNodeTypeMemcpy || type == cudaGraphNodeTypeMemset)
+            out.push_back(static_cast<int64_t>(i));
+    }
+    return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(ARCNERF_MODULE, m) {
-    m.doc() = "arcnerf_torch's CUDA kernels A-N, P and the sampler (see arcnerf_torch/ops/cuda_lib.py)";
+    m.doc() = "arcnerf_torch's CUDA kernels A-N, P and the sampler, and graph-capture queries "
+              "(see arcnerf_torch/ops/cuda_lib.py)";
     namespace py = pybind11;
     m.def("fused_mlp_fwd", &fused_mlp_fwd, py::arg("x"), py::arg("packed"), py::arg("din_pad"), py::arg("n_hidden"),
           py::arg("d_out"), py::arg("dout_pad"), py::arg("save_pre"));
@@ -712,4 +758,6 @@ PYBIND11_MODULE(ARCNERF_MODULE, m) {
     m.def("softplus_fwd", &softplus_fwd, py::arg("x"), py::arg("beta"));
     m.def("softplus_bwd", &softplus_bwd, py::arg("x"), py::arg("d_out"), py::arg("beta"));
     m.def("softplus_bwd2", &softplus_bwd2, py::arg("x"), py::arg("d_out"), py::arg("gg"), py::arg("beta"));
+    m.def("capture_node_count", &capture_node_count, py::arg("device"));
+    m.def("capture_device_nodes", &capture_device_nodes, py::arg("device"));
 }

@@ -229,17 +229,6 @@ class VolSDF(SdfModel):
     def count_step_work(self, n_rays, steps, eikonal=True):
         """``volsdf.eval_pts``: the sampler's sdf evaluations, n_eval a ray
         and round; ``sdf.normal_pts``: the samples (and in training the two
-        eikonal points a ray) whose normals a call takes;
-        ``act.softplus_fused``: the activation values of both sets of
-        points' GeoNet forwards that go through kernel P, the hidden layers'
-        widths a point where the activation is softplus and the net off the
-        CPU (0 where the three ops run, ``activation.softplus``)."""
-        eval_pts = n_rays * self.n_eval * self.n_iter * steps
-        normal_pts = n_rays * (self.n_samples() + (2 if eikonal else 0)) * steps
-        profiler.count("volsdf.eval_pts", eval_pts)
-        self.count_normal_pts(normal_pts)
-        geo = self.geo_net
-        width = 0
-        if getattr(geo.act, "beta", None) is not None and not geo.fc_0.is_cpu:
-            width = sum(getattr(geo, "fc_{}".format(i)).shape[1] for i in range(geo.D))
-        profiler.count("act.softplus_fused", (eval_pts + normal_pts) * width)
+        eikonal points a ray) whose normals a call takes."""
+        profiler.count("volsdf.eval_pts", n_rays * self.n_eval * self.n_iter * steps)
+        self.count_normal_pts(n_rays * (self.n_samples() + (2 if eikonal else 0)) * steps)

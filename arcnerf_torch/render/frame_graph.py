@@ -19,11 +19,12 @@ device constants the loop reads), then captures it, then replays it; every
 later frame is one replay, and its outputs are copied out of the static
 buffers. A failure to capture or replay raises; nothing falls back to the
 eager loop. Warm-up and capture record and count nothing while tracing is
-on (``profiler.suspended``); each replay counts the chunks it rendered
-(``render.replays``) and, from the chunks' static valid counts, the
-counters the eager chunks count (``FgModel.count_stream``). Graphs are
-captured on CUDA devices alone (``captures_on``): elsewhere the engine runs
-the loop itself.
+on (``profiler.suspended``), but the capture records the loop's layer map
+(``profiler.capturing``), which each replay's span names. Each replay
+counts the chunks it rendered (``render.replays``) and, from the chunks'
+static valid counts, the counters the eager chunks count
+(``FgModel.count_stream``). Graphs are captured on CUDA devices alone
+(``captures_on``): elsewhere the engine runs the loop itself.
 
 The graph reads the parameters, the buffers and the occupancy state by
 address, and bakes the render settings in at capture: the engine drops its
@@ -57,7 +58,8 @@ class FrameGraph:
         self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device) for k, v in feed.items()}
         self.out = None
         self.graph = None
-        self.capture_seconds = None
+        self.graph_id = None  # the layer map's name (profiler.capturing)
+        self.capture_seconds = self.map_seconds = None
 
     def _render(self):
         return self.engine._chunk_loop(self.inputs, self.chunk_rays)
@@ -72,11 +74,12 @@ class FrameGraph:
             torch.cuda.current_stream(dev).wait_stream(side)
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            nodes = profiler.CaptureNodes(dev)
+            with torch.cuda.graph(graph), profiler.capturing("render.frame", nodes) as layers:
                 self.out = self._render()
             torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
-        self.graph = graph
+        self.graph, self.graph_id, self.map_seconds = graph, layers.graph, layers.seconds
 
     def _count(self, n_valid):
         """The counters of the replayed chunks, by chunk size (tracing on)."""
@@ -98,7 +101,7 @@ class FrameGraph:
             with profiler.span("render.capture", rays=self.n_rays, chunks=self.n_chunks):
                 self._warm_up_and_capture()
             profiler.count("render.captures", 1)
-        with profiler.span("render.replay", rays=self.n_rays, chunks=self.n_chunks):
+        with profiler.span("render.replay", rays=self.n_rays, chunks=self.n_chunks, graph=self.graph_id):
             self.graph.replay()
         flat, n_valid = self.out
         if profiler.active():

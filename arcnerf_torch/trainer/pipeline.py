@@ -66,10 +66,11 @@ class Pipeline:
         """One step's batch: dict of (1, n_rays, ...) tensors on the device.
         Its ray picks stay in ``last_picks``."""
         n = min(self.n_rays, self.n_total_rays)
-        select = torch.randint(0, self.n_total_rays, (n,), generator=generator, device=self.device)
-        self.last_picks = select
-        batch = {k: v[select][None] for k, v in self.pool.items()}
-        return self.composite_bkg_color(batch, generator)
+        with profiler.span("train.draw"):
+            select = torch.randint(0, self.n_total_rays, (n,), generator=generator, device=self.device)
+            self.last_picks = select
+            batch = self.composite_bkg_color({k: v[select][None] for k, v in self.pool.items()}, generator)
+        return batch
 
     def composite_bkg_color(self, batch, generator=None):
         """Random or fixed background colour under the masks of the gt."""

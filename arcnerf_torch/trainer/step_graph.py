@@ -25,7 +25,8 @@ The graph reads the parameters, the Adam state, the EMA shadows, the
 occupancy state and the rate by address: whoever replaces one of those
 tensors (rather than writing into it) drops the trainer's graphs. The
 kernels' launch counters count Python calls, so each counts a bucket's
-warm-up and capture and no replay.
+warm-up and capture and no replay. The capture records the step's layer
+map (``profiler.capturing``), which each replay's span names.
 """
 
 import time
@@ -51,7 +52,8 @@ class StepGraph:
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.ring = None  # made at the first step, from its stats
         self.graph = None
-        self.capture_seconds = None
+        self.graph_id = None  # the layer map's name (profiler.capturing)
+        self.capture_seconds = self.map_seconds = None
 
     def _step(self):
         """One optimizer step; its stats (and picks) go to ring slot t."""
@@ -79,13 +81,14 @@ class StepGraph:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.trainer.generator)
-        with torch.cuda.graph(graph):
+        nodes = profiler.CaptureNodes(dev)
+        with torch.cuda.graph(graph), profiler.capturing("train.step", nodes) as layers:
             self._step()
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
-        self.graph = graph
-        self.trainer.logger.add_log("Captured the training step at {} rays in {:.3f} s".format(
-            self.n_rays, self.capture_seconds))
+        self.graph, self.graph_id, self.map_seconds = graph, layers.graph, layers.seconds
+        self.trainer.logger.add_log("Captured the training step at {} rays in {:.3f} s (its layer map {:.2f} ms)"
+                                    .format(self.n_rays, self.capture_seconds, 1e3 * self.map_seconds))
 
     def run(self, n, feeds=None):
         """``n`` consecutive steps (``feeds``: their batches, in the fed
@@ -106,6 +109,6 @@ class StepGraph:
                 with profiler.span("train.capture", rays=self.n_rays):
                     self._warm_up_and_capture()
             else:
-                with profiler.span("train.replay"):
+                with profiler.span("train.replay", graph=self.graph_id):
                     self.graph.replay()
         return {k: v[:n].clone() for k, v in self.ring.items()}

@@ -249,20 +249,26 @@ class ArcNerfTrainer:
     def update(self, feed):
         """Forward, loss, backward, Adam at the scheduled rate and the EMA on
         one batch: the device work of a step, with no host value in it
-        (``StepGraph`` captures it). Returns its stats, device tensors."""
+        (``StepGraph`` captures it), each in its span (``train.forward``,
+        ``train.loss``, ``train.backward``, ``train.optimizer``). Returns its
+        stats, device tensors."""
         # the epoch reaches the model as the device count of updates (NeuS's annealed slope)
-        out = self.model(dict(feed, cur_epoch=self._updates), inference_only=False, bound_state=self.bound_state,
-                         generator=self.generator)
-        loss_dict = self.loss_factory(feed, out)
+        with profiler.span("train.forward"):
+            out = self.model(dict(feed, cur_epoch=self._updates), inference_only=False,
+                             bound_state=self.bound_state, generator=self.generator)
+        with profiler.span("train.loss"):
+            loss_dict = self.loss_factory(feed, out)
         self.optimizer.zero_grad(set_to_none=True)
-        loss_dict["sum"].backward()
-        lr = self.lr_schedule(self._updates)
-        for group in self.optimizer.param_groups:
-            group["lr"].copy_(lr)
-        self.optimizer.step()
-        self._updates.add_(1)
-        if self.ema is not None:
-            ema_update(self.ema, self.model.named_parameters(), self.ema_decay)
+        with profiler.span("train.backward"):
+            loss_dict["sum"].backward()
+        with profiler.span("train.optimizer"):
+            lr = self.lr_schedule(self._updates)
+            for group in self.optimizer.param_groups:
+                group["lr"].copy_(lr)
+            self.optimizer.step()
+            self._updates.add_(1)
+            if self.ema is not None:
+                ema_update(self.ema, self.model.named_parameters(), self.ema_decay)
 
         stats = {"loss": loss_dict["sum"].detach()}
         for k in loss_dict["names"]:

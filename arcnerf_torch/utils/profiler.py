@@ -33,15 +33,35 @@ calls ``span`` but never ``count``: a span has no device operation, so a
 CUDA graph replays the same kernels with tracing on or off. The exact
 tier's frame graphs capture with tracing ``suspended`` and count each
 replay outside the graph.
+
+A replay runs no Python, so no span opens inside it. Instead each graph is
+mapped once, as it is captured (``capturing``), tracing on or off and
+inside ``suspended`` too: every span the capturing thread enters records
+the graph's node count at its enter and exit, and at the capture's end the
+graph's device nodes (kernels, memcpys, memsets, in the order the capture
+made them, which is their order on the capture's one stream) each take the
+path of the spans open when the node was made. The replay spans name their
+graph (``graph``), and ``collect()`` returns those graphs' maps, so a trace
+can put the k-th device operation of a replay under the k-th node's spans.
+Outside a capture an off ``span`` stays one flag check.
 """
 
+import bisect
 import contextlib
+import itertools
 import json
+import threading
 import time
 
 import torch
 
+from ..ops import cuda_lib
+
 _on = False
+_capture = None  # the _Capture recording a graph's layer map, if any
+_live = False  # _on or a capture: the one flag an off span() reads
+_graphs = {}  # graph id -> (the span path of each device node), every graph captured in the process
+_graph_ids = itertools.count()
 _spans = []  # [name, start_ns, end_ns, parent index, request index, attrs]
 _open = []  # indices of the open spans, innermost last
 _host = {}  # counter -> host sum
@@ -50,8 +70,14 @@ _reads = {}  # site -> reads
 _OFF = contextlib.nullcontext()
 
 
+def _refresh():
+    global _live
+    _live = _on or _capture is not None
+
+
 def enable():
-    """Start a fresh record and turn tracing on."""
+    """Start a fresh record and turn tracing on. The graphs' layer maps
+    stay: they are recorded at capture, tracing on or off."""
     global _on
     _spans.clear()
     _open.clear()
@@ -59,12 +85,14 @@ def enable():
     _device.clear()
     _reads.clear()
     _on = True
+    _refresh()
 
 
 def disable():
     """Turn tracing off; the record stays for ``collect()``."""
     global _on
     _on = False
+    _refresh()
 
 
 def active():
@@ -80,19 +108,93 @@ def suspended():
     would be captured, not counted); its replays count."""
     global _on
     was, _on = _on, False
+    _refresh()
     try:
         yield
     finally:
         _on = was
+        _refresh()
+
+
+class CaptureNodes:
+    """The nodes of the CUDA graph that the current stream of ``device``
+    (a CUDA torch.device) is capturing, read through the kernels' binding:
+    ``count()``, how many the capture has made; ``device_nodes()``, the
+    positions of those a device trace shows (kernels, memcpys, memsets)."""
+
+    def __init__(self, device):
+        cuda_lib.ops()  # built and loaded before the capture
+        self.device = torch.cuda.current_device() if device.index is None else device.index
+
+    def count(self):
+        return cuda_lib.ops().capture_node_count(self.device)
+
+    def device_nodes(self):
+        return cuda_lib.ops().capture_device_nodes(self.device)
+
+
+class _Capture:
+    """One graph's layer map as its capture records it: the path of spans
+    open on the capturing thread from each node count on."""
+
+    __slots__ = ("graph", "nodes", "thread", "path", "marks", "seconds")
+
+    def __init__(self, graph, nodes):
+        self.graph, self.nodes = graph, nodes
+        self.thread = threading.get_ident()
+        self.path = ()  # the open spans' names, outermost first
+        self.marks = [(0, ())]  # (node count, the path of the nodes made from there on)
+        self.seconds = 0.0  # the map's own cost
+
+    def move(self, path):
+        t0 = time.perf_counter()
+        self.marks.append((self.nodes.count(), path))
+        self.path = path
+        self.seconds += time.perf_counter() - t0
+
+    def layer_map(self):
+        """Each device node's span path, in the capture's order."""
+        t0 = time.perf_counter()
+        counts = [n for n, _ in self.marks]
+        out = tuple(self.marks[bisect.bisect_right(counts, i) - 1][1] for i in self.nodes.device_nodes())
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+@contextlib.contextmanager
+def capturing(label, nodes):
+    """Record the layer map of the graph captured inside the block (enter
+    it inside ``torch.cuda.graph``, on the capturing thread): ``nodes`` is
+    the capture's ``CaptureNodes``. Yields the capture, whose ``graph`` is
+    the graph's id (``label``/n, one n a process) and ``seconds`` what the
+    map cost; the map is kept only if the block completes."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("graph {} is already capturing".format(_capture.graph))
+    capture = _Capture("{}/{}".format(label, next(_graph_ids)), nodes)
+    _capture = capture
+    _refresh()
+    try:
+        yield capture
+        _graphs[capture.graph] = capture.layer_map()
+    finally:
+        _capture = None
+        _refresh()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "index", "annotation")
+    __slots__ = ("name", "attrs", "index", "annotation", "capture", "outer")
 
-    def __init__(self, name, attrs):
-        self.name, self.attrs, self.annotation = name, attrs, None
+    def __init__(self, name, attrs, capture=None):
+        self.name, self.attrs, self.capture = name, attrs, capture
+        self.index = self.annotation = None
 
     def __enter__(self):
+        if self.capture is not None:
+            self.outer = self.capture.path
+            self.capture.move(self.outer + (self.name,))
+        if not _on:
+            return self
         # the annotation encloses the span's clock reads
         if torch._C._autograd._profiler_enabled():
             self.annotation = torch._C._profiler._RecordFunctionFast(self.name)
@@ -105,16 +207,23 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        _spans[self.index][2] = time.time_ns()
-        _open.pop()
-        if self.annotation is not None:
-            self.annotation.__exit__(*exc)
+        if self.index is not None:
+            _spans[self.index][2] = time.time_ns()
+            _open.pop()
+            if self.annotation is not None:
+                self.annotation.__exit__(*exc)
+        if self.capture is not None:
+            self.capture.move(self.outer)
         return False
 
 
 def span(name, **attrs):
-    """A context manager: the named span while tracing is on, else a no-op."""
-    return _Span(name, attrs) if _on else _OFF
+    """A context manager: the named span while tracing is on or the calling
+    thread captures a graph, else a no-op."""
+    if not _live:
+        return _OFF
+    capture = _capture if _capture is not None and _capture.thread == threading.get_ident() else None
+    return _Span(name, attrs, capture) if _on or capture is not None else _OFF
 
 
 def count(name, value):
@@ -155,14 +264,18 @@ def host_read(value, site, convert=int):
 def collect():
     """What was recorded since ``enable()``: {"spans": [{name, start_ns,
     end_ns, parent, request, attrs}], "counters": {name: number}, "reads":
-    {site: count}}. Reads the device counters (call it off the hot path);
-    a span still open has ``end_ns`` None."""
+    {site: count}, "graphs": {graph id: [[span name, ...] outermost first,
+    a list a device node]}}, the graphs those of the spans' ``graph``
+    attributes (the replays'). Reads the device counters (call it off the
+    hot path); a span still open has ``end_ns`` None."""
     counters = dict(_host)
     for name, total in _device.items():
         counters[name] = counters.get(name, 0) + total.item()
     spans = [{"name": n, "start_ns": s, "end_ns": e, "parent": p, "request": r, "attrs": dict(a)}
              for n, s, e, p, r, a in _spans]
-    return {"spans": spans, "counters": counters, "reads": dict(_reads)}
+    named = {a["graph"] for *_, a in _spans if a.get("graph") in _graphs}
+    graphs = {g: [list(path) for path in _graphs[g]] for g in sorted(named)}
+    return {"spans": spans, "counters": counters, "reads": dict(_reads), "graphs": graphs}
 
 
 def write_chrome_trace(record, path):

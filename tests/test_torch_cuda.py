@@ -1901,16 +1901,11 @@ def test_a_volsdf_geonet_launches_kernel_p_with_the_three_ops_values(dev):
         assert float((a - b).norm()) <= 1e-5 * float(b.norm())
 
 
-def test_volsdf_graph_strides_count_kernel_p_and_ngp_steps_launch_none(dev, tmp_path):
-    # a VolSDF trainer's strided steps on the card: act.softplus_fused counts
-    # the sampler's and the step's GeoNet points times the hidden widths;
-    # the kernels launch at the warm-up step and the capture only. An NGP
-    # step launches none of them
+def _volsdf_trainer(tmp_path):
+    """A small VolSDF trainer on the card: 64 rays a step in strides of 4."""
     import os
 
-    from arcnerf_torch.ops import softplus as sp
     from arcnerf_torch.trainer import ArcNerfTrainer
-    from arcnerf_torch.utils import profiler
     from arcnerf_torch.utils.cfgs import load_configs, update_configs_by_dotlist
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1919,21 +1914,69 @@ def test_volsdf_graph_strides_count_kernel_p_and_ngp_steps_launch_none(dev, tmp_
             "--dataset.val.n_imgs", "1", "--dataset.val.wh", "[16,16]", "--n_rays", "64",
             "--model.obj_bound.sphere.radius", "2.0", "--dir.expr_dir", str(tmp_path / "volsdf"),
             "--progress.scan_steps", "4"]
-    trainer = ArcNerfTrainer(update_configs_by_dotlist(
+    return ArcNerfTrainer(update_configs_by_dotlist(
         load_configs(os.path.join(root, "configs/expr/synthetic_volsdf.yaml")), argv))
-    fg = trainer.model.fg_model
-    launches = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+
+
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def _replayed(fn):
+    """``fn()`` with tracing on under ``torch.profiler``: (the record,
+    each graph launch's device operations' names by start time, the
+    profile)."""
+    from arcnerf_torch.utils import profiler
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     profiler.enable()
     try:
-        trainer.train_steps(0, 4)
-        trainer.train_steps(4, 4)
-        counters = profiler.collect()["counters"]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        record = profiler.collect()
     finally:
         profiler.disable()
+    events = prof.events()
+    launches = {ev.id for ev in events
+                if ev.device_type == torch.autograd.DeviceType.CPU and ev.name.startswith(GRAPH_LAUNCHES)}
+    replays = {}
+    for ev in sorted(events, key=lambda ev: ev.time_range.start):
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)
+                and ev.id in launches):
+            replays.setdefault(ev.id, []).append(ev.name)
+    return record, replays, prof
+
+
+def _paths_of(names, layers, part):
+    """The span paths of the replayed operations whose name holds ``part``."""
+    return [tuple(path) for name, path in zip(names, layers) if part in name]
+
+
+def test_volsdf_graph_strides_count_kernel_p_and_ngp_steps_launch_none(dev, tmp_path):
+    # a VolSDF trainer's strided steps on the card: kernel P launches at
+    # the warm-up step and the capture only, and in the replays its kernels
+    # lie under the spans that launched them at capture: the forward in the
+    # sampler (model.sample), the normal's backward in model.normal and in
+    # the loss's backward (train.backward), the double backward in
+    # train.backward alone. An NGP step launches none of them
+    from arcnerf_torch.ops import softplus as sp
+
+    trainer = _volsdf_trainer(tmp_path)
+    fg = trainer.model.fg_model
+    launches = (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches)
+    trainer.train_steps(0, 4)
+    record, replays, _ = _replayed(lambda: trainer.train_steps(4, 4))
     torch.cuda.synchronize()
-    width = sum(getattr(fg.geo_net, "fc_{}".format(i)).shape[1] for i in range(fg.geo_net.D))
-    assert width > 0
-    assert counters["act.softplus_fused"] == 8 * 64 * (fg.n_eval * fg.n_iter + fg.n_samples() + 2) * width
+    (layers,) = record["graphs"].values()
+    assert len(replays) == 4
+    for names in replays.values():
+        assert len(names) == len(layers)
+        forward = _paths_of(names, layers, "softplus_fwd_kernel")
+        backward = _paths_of(names, layers, "softplus_bwd_kernel")
+        double = _paths_of(names, layers, "softplus_bwd2_kernel")
+        assert sum("model.sample" in p for p in forward) == fg.n_iter * fg.geo_net.D
+        assert {p[-1] for p in backward} == {"model.normal", "train.backward"}
+        assert double and all(p == ("train.backward",) for p in double)
     # the warm-up step and the capture: the sampler's n_iter forwards and
     # the step's forward, the normal's backward and the loss's backwards
     d = fg.geo_net.D
@@ -1946,3 +1989,62 @@ def test_volsdf_graph_strides_count_kernel_p_and_ngp_steps_launch_none(dev, tmp_
         ngp.train_steps(e, 1)
     torch.cuda.synchronize()
     assert (sp.softplus_fwd.launches, sp.softplus_bwd.launches, sp.softplus_bwd2.launches) == before
+
+
+def _step_split(record, prof):
+    from bench_torch import graph_spans
+
+    launches, device, _ = graph_spans.profiled_events(prof, None)
+    return graph_spans.attribute(record["spans"], record["graphs"], launches, device)
+
+
+def test_a_volsdf_step_graph_maps_every_replayed_kernel_to_its_spans(dev, tmp_path):
+    # the captured step's layer map holds one span path a device node: a
+    # profiled replay shows as many device operations, the march's kernels
+    # lie under model.march (forward) and train.backward (its gradient),
+    # Adam's under train.optimizer, and the replays' device time falls to
+    # the step's spans, the sampler's and the backward's above all
+    trainer = _volsdf_trainer(tmp_path)
+    trainer.train_steps(0, 4)
+    record, replays, prof = _replayed(lambda: trainer.train_steps(4, 4))
+    (graph, layers), = record["graphs"].items()
+    step = trainer.step_graphs[(64, None)]
+    assert graph == step.graph_id and graph.startswith("train.step/") and step.map_seconds > 0
+    assert {s["attrs"]["graph"] for s in record["spans"] if s["name"] == "train.replay"} == {graph}
+    assert len(replays) == 4 and {len(names) for names in replays.values()} == {len(layers)}
+    names = next(iter(replays.values()))
+    assert all(p[-1] == "model.march" for p in _paths_of(names, layers, "segment_march_fwd_kernel"))
+    assert all(p == ("train.backward",) for p in _paths_of(names, layers, "segment_march_bwd_kernel"))
+    adam = [tuple(p) for n, p in zip(names, layers) if "adam" in n.lower()]
+    assert adam and all(p == ("train.optimizer",) for p in adam)
+    split = _step_split(record, prof)
+    assert split["unmapped_replays"] == 0
+    inc, own = split["inclusive"], split["own"]
+    for name in ("model.sample", "model.error_bound", "model.normal", "train.backward", "train.optimizer"):
+        assert inc[name] > 0, name
+    assert own.get("train.replay", 0.0) < 0.05 * inc["train.replay"]
+
+
+def test_an_exact_frame_graph_maps_every_replayed_kernel_to_its_spans(dev):
+    # the serving cell's frame shape: the frame graph's layer map, recorded
+    # while tracing was off, against one profiled replay: as many device
+    # operations as device nodes, S's count under model.sample and its
+    # write under model.compact, B under model.field, C under model.march,
+    # each inside its render.chunk
+    graphs, _ = _graph_engines(dev, "configs/expr/synthetic_ngp.yaml", (), 128)
+    graphs.set_render_cap(SERVE_CAP)
+    sample = _poses(1, SERVE_WH, dev)[0]
+    graphs.render_image(sample, bkg_color=WHITE)
+    record, replays, prof = _replayed(lambda: graphs.render_image(sample, bkg_color=WHITE))
+    (graph, layers), = record["graphs"].items()
+    (frame,) = graphs.graphs.values()
+    assert graph == frame.graph_id and graph.startswith("render.frame/") and frame.map_seconds > 0
+    (names,) = replays.values()
+    assert len(names) == len(layers)
+    for part, span in (("sample_count_kernel", "model.sample"), ("sample_write_kernel", "model.compact"),
+                       ("hash_encode_fwd_kernel", "model.field"), ("segment_march_fwd_kernel", "model.march")):
+        paths = _paths_of(names, layers, part)
+        assert len(paths) == 40 and all(p == ("render.chunk", span) for p in paths), (part, set(paths))
+    split = _step_split(record, prof)
+    assert split["unmapped_replays"] == 0
+    assert split["inclusive"]["model.sample"] > 0 and split["inclusive"]["model.field"] > 0

@@ -11,11 +11,17 @@ strides of the small training run:
   read; spans nest with the right parents and requests, and a span lines
   up with the profiler's annotation of the same name;
 - ``host_read`` counts by site; ``compact.dropped`` counts the valid
-  samples past the point budget.
+  samples past the point budget;
+- a graph's capture maps each device node to the spans open on the
+  capturing thread when it was made (a counter of nodes stands in for the
+  card's graph), tracing off, on or suspended; ``collect()`` returns the
+  maps of the graphs its replay spans name; a step records its draw,
+  forward, loss, backward and optimizer spans.
 """
 
 import contextlib
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -148,7 +154,7 @@ def test_tracing_off_records_nothing(case, tmp_path):
     profiler.enable()
     profiler.disable()
     run_case(case, tmp_path, "off")
-    assert profiler.collect() == {"spans": [], "counters": {}, "reads": {}}
+    assert profiler.collect() == {"spans": [], "counters": {}, "reads": {}, "graphs": {}}
 
 
 @pytest.mark.parametrize("case", ["exact", "windowed"])
@@ -427,3 +433,149 @@ def test_inference_writes_its_spans_as_a_chrome_trace(tmp_path, monkeypatch):
     frames = [ev for ev in events if ev["name"] == "render.frame"]
     assert len(frames) == 2 and all(ev["args"]["tier"] == "exact" for ev in frames)
     assert {ev["name"] for ev in events} >= {"render.chunk", "model.sample", "model.field", "counters"}
+
+
+# ------------------------------------------------------- capture layer maps
+class FakeNodes:
+    """A capture's nodes without a card: ``make`` adds nodes by kind; the
+    kernels, memcpys and memsets are the device nodes."""
+
+    DEVICE = ("kernel", "memcpy", "memset")
+
+    def __init__(self):
+        self.kinds = []
+
+    def make(self, *kinds):
+        self.kinds.extend(kinds)
+
+    def count(self):
+        return len(self.kinds)
+
+    def device_nodes(self):
+        return [i for i, k in enumerate(self.kinds) if k in self.DEVICE]
+
+
+def _capture_work(nodes):
+    """Nodes made outside, inside and between nested spans, and nodes no
+    trace shows (an event, a host node)."""
+    nodes.make("kernel")
+    with profiler.span("a"):
+        nodes.make("kernel", "event")
+        with profiler.span("b", k=1):
+            nodes.make("memset", "kernel")
+        nodes.make("memcpy")
+        with profiler.span("c"):
+            pass
+    nodes.make("host", "kernel")
+
+
+CAPTURE_MAP = [[], ["a"], ["a", "b"], ["a", "b"], ["a"], []]
+
+
+def _maps_named(*graphs):
+    """``collect()["graphs"]`` after a replay span naming each graph."""
+    profiler.enable()
+    for graph in graphs:
+        with profiler.span("train.replay", graph=graph):
+            pass
+    return profiler.collect()["graphs"]
+
+
+@pytest.mark.parametrize("mode", ["off", "on", "suspended"])
+def test_a_capture_maps_each_device_node_to_the_spans_open_at_its_making(mode):
+    nodes = FakeNodes()
+    profiler.enable()  # a fresh record
+    if mode == "off":
+        profiler.disable()
+    with profiler.suspended() if mode == "suspended" else contextlib.nullcontext():
+        with profiler.capturing("test.graph", nodes) as capture:
+            _capture_work(nodes)
+    spans = profiler.collect()["spans"]
+    assert [s["name"] for s in spans] == (["a", "b", "c"] if mode == "on" else [])
+    assert capture.graph.startswith("test.graph/") and capture.seconds > 0
+    assert _maps_named(capture.graph) == {capture.graph: CAPTURE_MAP}
+
+
+def test_each_capture_takes_a_graph_id_of_its_own():
+    ids = []
+    for _ in range(3):
+        with profiler.capturing("test.graph", FakeNodes()) as capture:
+            pass
+        ids.append(capture.graph)
+    assert len(set(ids)) == 3 and all(i.startswith("test.graph/") for i in ids)
+
+
+def test_an_off_span_outside_a_capture_is_the_shared_no_op():
+    off = profiler.span("x")
+    assert profiler.span("y", k=1) is off and not profiler.active()
+    seen = []
+    with profiler.capturing("test.graph", FakeNodes()):
+        assert profiler.span("x") is not off
+        worker = threading.Thread(target=lambda: seen.append(profiler.span("x")))
+        worker.start()
+        worker.join(timeout=30)
+        assert not worker.is_alive()
+    assert seen == [off] and profiler.span("x") is off
+
+
+def test_a_capture_ignores_the_spans_of_other_threads():
+    # autograd runs a graph's backward on threads of its own: their spans
+    # record nothing, and the nodes they make take the capturing thread's path
+    nodes = FakeNodes()
+
+    def autograd_thread():
+        with profiler.span("other"):
+            nodes.make("kernel")
+
+    with profiler.capturing("test.graph", nodes) as capture:
+        with profiler.span("a"):
+            worker = threading.Thread(target=autograd_thread)
+            worker.start()
+            worker.join(timeout=30)
+            assert not worker.is_alive()
+            nodes.make("kernel")
+        nodes.make("kernel")
+    assert _maps_named(capture.graph) == {capture.graph: [["a"], ["a"], []]}
+
+
+def test_a_failed_capture_keeps_no_map_and_captures_do_not_nest():
+    nodes = FakeNodes()
+    with pytest.raises(ValueError):
+        with profiler.capturing("test.graph", nodes) as failed:
+            with pytest.raises(RuntimeError, match="already capturing"):
+                with profiler.capturing("test.other", nodes):
+                    pass
+            with profiler.span("a"):
+                nodes.make("kernel")
+                raise ValueError("the capture failed")
+    assert profiler.span("x") is profiler.span("y")  # the capture mode ended
+    assert _maps_named(failed.graph) == {}
+
+
+def test_collect_returns_the_maps_of_the_graphs_its_replays_name():
+    first, second = FakeNodes(), FakeNodes()
+    with profiler.capturing("test.first", first) as a:
+        first.make("kernel")
+    with profiler.capturing("test.second", second) as b:
+        with profiler.span("x"):
+            second.make("kernel")
+    profiler.enable()  # a map outlives the record it was captured before
+    assert profiler.collect()["graphs"] == {}
+    maps = _maps_named(b.graph, b.graph, "never.captured/0")
+    assert maps == {b.graph: [["x"]]} and a.graph not in maps
+    assert json.loads(json.dumps(maps)) == maps
+
+
+STEP_SPANS = ("train.draw", "train.forward", "train.loss", "train.backward", "train.optimizer")
+
+
+def test_a_step_records_its_layer_spans(runs):
+    # each of the three strides' four steps: the batch's draw, the model's
+    # forward, the loss, its backward, then the rate, Adam and the EMA,
+    # directly under the stride
+    spans = runs["strides"]["record"]["spans"]
+    for name in STEP_SPANS:
+        mine = [i for i, s in enumerate(spans) if s["name"] == name]
+        assert len(mine) == 12, name
+        assert all(spans[spans[i]["parent"]]["name"] == "train.stride" for i in mine)
+    assert [s["name"] for s in spans if s["name"] in STEP_SPANS] == list(STEP_SPANS) * 12
